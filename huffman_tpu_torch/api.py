@@ -1,0 +1,46 @@
+"""Public compress/decompress of the PyTorch port (counterpart of
+huffman_tpu/api.py), for the native HTPU container only."""
+
+from __future__ import annotations
+
+import torch
+
+from huffman_tpu.codebook import Codebook
+from huffman_tpu.container import detect
+
+from .container import block_format
+from .device import resolve_device
+
+_NOT_PORTED = {
+    "htps": "HTPS stream containers: ROADMAP.md, Queue 1, front-ends and HTPS/HTPX",
+    "htpx": "HTPX sharded archives: ROADMAP.md, Queue 1, front-ends and HTPS/HTPX",
+    "reference": (
+        "the reference .compressed format: ROADMAP.md, Queue 1, "
+        "v1 / reference-format device paths"
+    ),
+}
+
+
+def compress(
+    data: bytes,
+    device: str | torch.device,
+    block_symbols: int = 512,
+    max_code_len: int | None = 18,
+    codebook: Codebook | None = None,
+) -> bytes:
+    """Compress ``data`` to an HTPU v2 container, encoding on ``device``.
+    Byte-identical to ``huffman_tpu.compress(data, backend="numpy")`` with
+    the same ``block_symbols``, ``max_code_len`` and ``codebook``."""
+    return block_format.compress(
+        data, resolve_device(device), block_symbols, max_code_len, codebook
+    )
+
+
+def decompress(blob: bytes, device: str | torch.device) -> bytes:
+    """Decompress an HTPU container, decoding on ``device``; other
+    container kinds raise ``NotImplementedError``."""
+    dev = resolve_device(device)
+    kind = detect(blob)
+    if kind != "htpu":
+        raise NotImplementedError(f"not ported yet: {_NOT_PORTED[kind]}")
+    return block_format.decompress(blob, dev)

@@ -1,0 +1,43 @@
+"""Unsigned 32-bit helpers for the plain PyTorch versions of the kernels.
+
+PyTorch's ``uint32`` tensors lack shifts, compares, addition and ``max``
+on the CPU, and its ``int32`` right shift is arithmetic, while the codec
+needs logical u32 shifts and unsigned compares. The plain versions
+therefore carry u32 values in ``int64`` tensors kept in ``[0, 2**32)``.
+Tensors handed to the CUDA kernels are ``int32`` bit patterns, which the
+kernels read as ``uint32_t``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+MASK32 = 0xFFFFFFFF
+
+
+def widen(bits: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> int64 u32 values."""
+    return bits.to(torch.int64) & MASK32
+
+
+def narrow(values: torch.Tensor) -> torch.Tensor:
+    """int64 values -> int32 bit patterns of their low 32 bits."""
+    v = values & MASK32
+    return torch.where(v >= (1 << 31), v - (1 << 32), v).to(torch.int32)
+
+
+def shl(x: torch.Tensor, s) -> torch.Tensor:
+    """Logical left shift of int64 u32 values, wrapped to 32 bits."""
+    return (x << s) & MASK32
+
+
+def from_numpy_u32(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """numpy u32 values -> int32 bit-pattern tensor on ``device``."""
+    arr = np.ascontiguousarray(np.asarray(a, dtype=np.uint32)).view(np.int32)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def to_numpy_u32(bits: torch.Tensor) -> np.ndarray:
+    """int32 bit-pattern tensor -> numpy u32 array on the host."""
+    return bits.detach().cpu().contiguous().numpy().view(np.uint32)

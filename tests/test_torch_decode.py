@@ -1,0 +1,154 @@
+"""Port decode (K1 plain version + K2) against the JAX Pallas decoder run
+in interpret mode and against the numpy protocol twin.
+
+Exact equality on every word, garbage lanes and steps included: the codec
+is bit-exact by design.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+jnp = pytest.importorskip("jax.numpy")
+
+from huffman_tpu.bitio import pack_codes
+from huffman_tpu.codebook import Codebook, package_merge_lengths
+from huffman_tpu.constants import GROUP_LANES, MAX_SYMBOLS
+from huffman_tpu.container import interleave as il
+from huffman_tpu.ops import pallas_decode as pd
+from huffman_tpu_torch.ops.cuda_decode import (
+    TRANSLATE_MAX_ALPHABET,
+    decode_groups,
+    decode_groups_plain,
+)
+from huffman_tpu_torch.ops.cuda_gather import gather_u16_pairs
+from huffman_tpu_torch.ops.tables import tables_from_codebook
+
+CPU = torch.device("cpu")
+
+
+def _setup(seed, n_real, B, alphabet_size, max_len):
+    """Interleaved streams of a random input with an odd tail (the last
+    block is partial) over ``alphabet_size`` symbols, coded with the
+    length-limited package-merge codebook at ``max_len``."""
+    rng = np.random.default_rng(seed)
+    n_lanes = -(-n_real // GROUP_LANES) * GROUP_LANES
+    n_pairs = n_real * B - int(rng.integers(1, B))
+    alphabet = rng.choice(MAX_SYMBOLS, size=alphabet_size, replace=False)
+    if alphabet_size <= 300:  # skewed: exercises the length limit
+        p = 1.0 / np.arange(1, alphabet_size + 1) ** 1.2
+        symbols = rng.choice(alphabet, size=n_pairs, p=p / p.sum())
+    else:  # uniform: every symbol occurs, so n_unique == alphabet_size
+        symbols = np.concatenate(
+            [alphabet, rng.choice(alphabet, size=n_pairs - alphabet_size)]
+        )
+        rng.shuffle(symbols)
+    symbols = symbols.astype(np.uint16)
+    freqs = np.bincount(symbols, minlength=MAX_SYMBOLS)
+    cb = Codebook.from_lengths(package_merge_lengths(freqs, max_len))
+
+    padded = np.zeros(n_lanes * B, dtype=np.uint16)
+    padded[:n_pairs] = symbols
+    lens = cb.lengths[padded].astype(np.int64)
+    lens[n_pairs:] = 0
+    codes = cb.codes[padded]
+    rows = [  # each lane's real symbols only (no trailing padding)
+        pack_codes(codes[l * B : min((l + 1) * B, n_pairs)],
+                   lens[l * B : min((l + 1) * B, n_pairs)])[0]
+        for l in range(n_real)
+    ]
+    slab = np.zeros((n_lanes, max(r.size for r in rows)), dtype=np.uint32)
+    for i, r in enumerate(rows):
+        slab[i, : r.size] = r
+    eff = il.effective_lengths(lens.reshape(n_lanes, B), n_pairs, cb.lengths[cb.lengths > 0].min(), n_lanes, B)
+    streams = il.build_interleaved_streams(slab, eff, n_real)
+    return symbols, cb, streams
+
+
+def _port_decode(cb, streams, n_real, B):
+    stacked, _ = il.pad_streams(streams)
+    ngroups = len(streams)
+    t = tables_from_codebook(cb, CPU)
+    n_real_g = np.clip(n_real - GROUP_LANES * np.arange(ngroups), 0, GROUP_LANES)
+    translate = cb.n_unique <= TRANSLATE_MAX_ALPHABET
+    out = decode_groups(
+        torch.from_numpy(stacked.reshape(ngroups, -1).view(np.int32)),
+        torch.from_numpy(n_real_g.astype(np.int32)),
+        t, B, translate,
+    )
+    if not translate:
+        out = gather_u16_pairs(out, t.sym_order)
+    return out.numpy(), translate
+
+
+def _jax_decode(cb, streams, n_real, B, translate):
+    stacked, _ = il.pad_streams(streams)
+    ngroups = len(streams)
+    rows_per = stacked.shape[0] // ngroups
+    symtab, sym_rows, tr_ok = pd.build_symtab(cb.sym_order)
+    assert tr_ok == translate  # the port keeps the JAX in-kernel tier boundary
+    meta = np.zeros((ngroups, 4), dtype=np.int32)
+    meta[:, 0] = np.clip(n_real - GROUP_LANES * np.arange(ngroups), 0, GROUP_LANES)
+    out = pd.decode_groups(
+        jnp.asarray(stacked), jnp.asarray(cb.lj_limit),
+        jnp.asarray((cb.base & 0xFFFFFFFF).astype(np.uint32)),
+        jnp.asarray(symtab), jnp.asarray(meta), B, rows_per, sym_rows,
+        max_len=max(cb.max_len, 1), translate=translate,
+        min_len=int(cb.lengths[cb.lengths > 0].min()), interpret=True,
+        sym_order_dev=None if translate else jnp.asarray(cb.sym_order.astype(np.int32)),
+        packed_out=True,
+    )
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize(
+    "alphabet,max_len",
+    [(1, 12), (2, 12), (300, 12), (1024, 12), (1025, 12), (4000, 12),
+     (1, 18), (2, 18), (300, 18), (1024, 18), (1025, 18), (4000, 18),
+     (30000, 18)],
+)
+def test_decode_groups_matches_jax_and_twin(alphabet, max_len):
+    B, n_real = 32, 1500
+    symbols, cb, streams = _setup(alphabet + max_len, n_real, B, alphabet, max_len)
+    assert cb.n_unique == alphabet and cb.max_len <= max_len
+    port, translate = _port_decode(cb, streams, n_real, B)
+    np.testing.assert_array_equal(port, _jax_decode(cb, streams, n_real, B, translate))
+
+    ngroups = len(streams)
+    twin = np.stack([
+        il.decode_interleaved_numpy(
+            streams[g], cb, B, max(0, min(GROUP_LANES, n_real - g * GROUP_LANES))
+        )
+        for g in range(ngroups)
+    ]).astype(np.uint32)  # (g, step, lane)
+    pairs = twin[:, 0::2] | (twin[:, 1::2] << 16)
+    np.testing.assert_array_equal(
+        port.view(np.uint32).reshape(ngroups, B // 2, GROUP_LANES), pairs
+    )
+    dec = port.reshape(ngroups, B // 2, GROUP_LANES).transpose(0, 2, 1)
+    dec = np.ascontiguousarray(dec).view("<u2").reshape(-1)[: symbols.size]
+    np.testing.assert_array_equal(dec, symbols)
+
+
+def test_decode_groups_rejects_odd_steps_and_wide_translate():
+    _, cb, streams = _setup(0, 10, 8, 300, 18)
+    t = tables_from_codebook(cb, CPU)
+    s = torch.zeros((1, 4096), dtype=torch.int32)
+    n = torch.tensor([10], dtype=torch.int32)
+    with pytest.raises(ValueError, match="even"):
+        decode_groups(s, n, t, 7, True)
+    with pytest.raises(ValueError, match="int32"):
+        decode_groups(s.to(torch.int64), n, t, 8, True)
+    wide = t._replace(sym_order=torch.zeros(TRANSLATE_MAX_ALPHABET + 1, dtype=torch.int16))
+    with pytest.raises(ValueError, match="translate"):
+        decode_groups(s, n, wide, 8, True)
+
+
+def test_plain_decode_is_the_wrapper_on_cpu():
+    B, n_real = 16, 300
+    _, cb, streams = _setup(11, n_real, B, 300, 18)
+    stacked, _ = il.pad_streams(streams)
+    s = torch.from_numpy(stacked.reshape(1, -1).view(np.int32))
+    n = torch.tensor([n_real], dtype=torch.int32)
+    t = tables_from_codebook(cb, CPU)
+    assert torch.equal(decode_groups(s, n, t, B, True), decode_groups_plain(s, n, t, B, True))

@@ -1,0 +1,89 @@
+"""Package-level properties of the PyTorch port: it runs without JAX,
+refuses a CUDA device it does not have, builds from hashed sources, and
+counts only real kernel launches."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import huffman_tpu_torch
+from huffman_tpu_torch.device import resolve_device
+from huffman_tpu_torch.runtime import kernels
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "huffman_tpu_torch"
+
+
+def test_port_runs_without_jax():
+    code = (
+        "import sys, numpy as np\n"
+        "import huffman_tpu_torch as ht\n"
+        "d = np.random.default_rng(0).integers(0, 40, 30001, dtype=np.uint8).tobytes()\n"
+        "assert ht.decompress(ht.compress(d, 'cpu', block_symbols=64), 'cpu') == d\n"
+        "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')))\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
+
+
+def test_no_jax_import_in_the_package_source():
+    pattern = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
+    offenders = [p for p in PKG.rglob("*.py") if pattern.search(p.read_text())]
+    assert offenders == []
+
+
+def test_cuda_request_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        huffman_tpu_torch.compress(b"abcd" * 100, device="cuda")
+    blob = huffman_tpu_torch.compress(b"abcd" * 100, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        huffman_tpu_torch.decompress(blob, device="cuda")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.build()
+
+
+def test_library_name_tracks_the_sources(monkeypatch, tmp_path):
+    for src in kernels.CSRC.glob("*.cu"):
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    before = kernels.library_path()
+    assert before == kernels.library_path()
+    with open(tmp_path / "pack.cu", "a") as f:
+        f.write("\n// edited\n")
+    assert kernels.library_path() != before
+    assert before.name.startswith("libhtpu_torch_") and before.suffix == ".so"
+
+
+def test_cpu_path_launches_no_kernel():
+    kernels.reset_launch_counts()
+    data = np.random.default_rng(1).integers(0, 2000, 20000).astype("<u2").tobytes()
+    blob = huffman_tpu_torch.compress(data, "cpu", block_symbols=64)
+    assert huffman_tpu_torch.decompress(blob, "cpu") == data
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+
+
+def test_every_kernel_symbol_has_a_source():
+    text = "".join(p.read_text() for p in kernels.CSRC.glob("*.cu"))
+    for symbol, _ in kernels.KERNELS.values():
+        assert f'extern "C" int {symbol}(' in text
