@@ -5,19 +5,33 @@
 
 Phases, each printing one line or a few:
   0. card: ``nvidia-smi --query-gpu=name,power.limit`` as the card reports it;
-  1. build: the four kernels from huffman_tpu_torch/csrc/ with nvcc
-     (the package's own first-use build), with the build seconds;
+  1. build: the kernels from huffman_tpu_torch/csrc/ with nvcc (the
+     package's own first-use build, one nvcc per source in parallel), with
+     the build seconds;
   2. each kernel against its plain PyTorch version on the same CUDA
-     tensors, bit for bit, at the shapes of the main path: the tensors are
-     captured from compress/decompress of the 32 MiB silesia-like corpus
-     (decode in rank mode + the rank -> symbol gather) and of a 300-symbol
-     input (decode in translate mode). Times from CUDA events;
-  3. the slice: compress on the card, decompress on the card, for the
-     32 MiB silesia-like and wide-alphabet (30,000-symbol) corpora, an
-     8 MiB 300-symbol input and small edge inputs. Each container must
-     equal the one the port's CPU path (the plain versions, held equal to
-     the JAX package by the CPU tests) writes, and each decompress must
-     return the input. All four kernels must have launched in this phase.
+     tensors, bit for bit, at the shapes of the main paths. The tensors are
+     captured from the calls a user makes at 32 MiB:
+       - the fused compress route: silesia-like (tier 4096: histogram,
+         package-merge, rank-select gather, lane pack), wide30k (tier
+         32768: canonical-rank gather with the rank stage) and a
+         full-alphabet Zipf input (tier 65536: canonical rank by identity);
+       - the host-codebook compress route, silesia-like with a given
+         codebook (the dense code gather);
+       - decompress of silesia-like (rank-mode decode, rank -> symbol
+         pairs) and of an 8 MiB 300-symbol input (translate-mode decode).
+     Times from CUDA events, with each kernel's bound (the larger of its
+     bytes over 3.35 TB/s and its integer operations over 16.7 Tops/s) and,
+     where one PyTorch call computes the same function, that call's time.
+     A kernel timed at several shapes is recorded by its slowest, with every
+     shape under ``variants``;
+  3. the paths, each with the launch counts set to 0 just before it and
+     read just after: the fused route (compress + decompress of the three
+     32 MiB inputs and the 8 MiB one) and the host-codebook route (32 MiB
+     silesia-like with a given codebook, and small edge inputs). Every
+     container must equal the one the port's CPU path (the plain versions,
+     held equal to the JAX package by the CPU tests) writes, and every
+     decompress must return the input. Each path's kernels must all have
+     launched in its run.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -37,15 +51,25 @@ import numpy as np
 import torch
 
 DEVICE = "cuda"
-SILESIA_BYTES = 32 << 20
+BIG = 32 << 20
 TRANSLATE_BYTES = 8 << 20
+HBM_BYTES_PER_MS = 3.35e12 / 1e3   # H100 SXM device memory, bytes per ms
+# H100 SXM 32-bit integer rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost.
+OPS_PER_MS = 132 * 64 * 1.98e9 / 1e3
 
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "decode_groups": ("huffman_tpu_torch/csrc/decode.cu", "huffman_tpu/ops/pallas_decode.py:242"),
     "gather_u16_pairs": ("huffman_tpu_torch/csrc/gather.cu", "huffman_tpu/ops/pallas_gather.py:592"),
     "gather_codes": ("huffman_tpu_torch/csrc/gather.cu", "huffman_tpu/ops/pallas_gather.py:138"),
     "pack_lanes": ("huffman_tpu_torch/csrc/pack.cu", "huffman_tpu/ops/pallas_encode.py:39"),
+    "histogram": ("huffman_tpu_torch/csrc/hist.cu", "huffman_tpu/ops/pallas_hist.py:48"),
+    "package_merge": ("huffman_tpu_torch/csrc/package_merge.cu", "huffman_tpu/ops/device_codebook.py:62"),
+    "gather_rank_select": ("huffman_tpu_torch/csrc/rank_gather.cu", "huffman_tpu/ops/pallas_gather.py:270"),
+    "gather_rank_canonical": ("huffman_tpu_torch/csrc/rank_gather.cu", "huffman_tpu/ops/pallas_gather.py:363"),
 }
+FUSED_PATH = ("histogram", "package_merge", "gather_rank_select", "gather_rank_canonical",
+              "pack_lanes", "decode_groups", "gather_u16_pairs")
+HOST_PATH = ("gather_codes", "pack_lanes", "decode_groups", "gather_u16_pairs")
 
 
 def card_line() -> str:
@@ -69,9 +93,9 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def capture(calls: list[tuple[object, str]], fn, *args):
-    """Run ``fn(*args)``; return its result and the arguments of the first
-    call of each wrapper ``module.name`` in ``calls`` during it."""
+def capture(calls: list[tuple[object, str]], fn, *args, **kwargs):
+    """Run ``fn``; return its result and the arguments of the first call
+    of each wrapper ``module.name`` in ``calls`` during it."""
     seen, originals = {}, {}
     for mod, name in calls:
         originals[(mod, name)] = orig = getattr(mod, name)
@@ -82,7 +106,7 @@ def capture(calls: list[tuple[object, str]], fn, *args):
 
         setattr(mod, name, recorder)
     try:
-        result = fn(*args)
+        result = fn(*args, **kwargs)
     finally:
         for (mod, name), orig in originals.items():
             setattr(mod, name, orig)
@@ -95,6 +119,74 @@ def max_abs_err(got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def work(name: str, args, out) -> tuple[int, int]:
+    """(bytes, operations) the function must move and do for these inputs:
+    each input read once, each output written once; operations are the
+    per-element integer work of the algorithm."""
+    outs = out if isinstance(out, tuple) else (out,)
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    if name == "histogram":
+        sym, n_valid = args
+        return 2 * n_valid + nbytes(*outs), 3 * n_valid
+    if name == "package_merge":
+        freqs, n, max_len, K = args
+        n_sym = freqs.numel()
+        # a comparison sort of the leaves, then a 2K-item merge per round
+        ops = n_sym * int(np.log2(n_sym)) + (max_len - 1) * 2 * K * int(np.log2(2 * K))
+        return nbytes(freqs, *outs), ops
+    if name in ("gather_rank_select", "gather_rank_canonical", "gather_codes"):
+        sym = args[0]
+        per = {"gather_rank_select": 8, "gather_rank_canonical": 40, "gather_codes": 3}[name]
+        return nbytes(*tensors, *outs), per * sym.numel()
+    if name == "pack_lanes":
+        return nbytes(*tensors, *outs), 12 * args[0].numel()
+    if name == "gather_u16_pairs":
+        return nbytes(*tensors, *outs), 6 * args[0].numel()
+    if name == "decode_groups":
+        streams, n_real, tables, n_steps, translate = args
+        ops = 40 * streams.shape[0] * 1024 * n_steps
+        return nbytes(streams, n_real, tables.lj_limit, tables.base, tables.sym_order, *outs), ops
+    raise KeyError(name)
+
+
+def bound(name: str, args, out) -> tuple[float, str]:
+    b, ops = work(name, args, out)
+    t_bytes, t_ops = b / HBM_BYTES_PER_MS, ops / OPS_PER_MS
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_call(name: str, args):
+    """One PyTorch call computing the same function on the same inputs, or
+    None. Its inputs are prepared here, outside the timed call."""
+    if name == "histogram":
+        sym, n_valid = args
+        idx = sym.reshape(-1)[:n_valid].to(torch.int64) & 0xFFFF
+        return lambda: torch.bincount(idx, minlength=65536)
+    if name == "gather_codes":
+        sym, table, _ = args
+        idx = sym.to(torch.int64) & 0xFFFF
+        return lambda: table[idx]
+    if name == "gather_u16_pairs":
+        packed, table = args
+        u = packed.to(torch.int64) & 0xFFFFFFFF
+        idx = torch.stack([u & 0xFFFF, u >> 16]).clamp(max=table.numel() - 1)
+        return lambda: table[idx]
+    return None
+
+
+def slowest(variants: list[dict]) -> dict:
+    """A kernel's record: its slowest shape's numbers, the largest error
+    over all shapes, and every shape under ``variants``."""
+    top = max(variants, key=lambda v: v["ms"])
+    rec = {k: v for k, v in top.items() if k != "variant"}
+    rec["max_abs_err"] = max(v["max_abs_err"] for v in variants)
+    return {**rec, "variants": variants}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -102,7 +194,14 @@ def main() -> int:
     import huffman_tpu_torch as ht
     from huffman_tpu_torch.container import block_format as bf
     from huffman_tpu_torch.corpus import silesia_like, wide30k, zipf_pairs
-    from huffman_tpu_torch.ops import cuda_decode, cuda_encode, cuda_gather
+    from huffman_tpu_torch.ops import (
+        cuda_decode,
+        cuda_encode,
+        cuda_gather,
+        cuda_hist,
+        device_codebook,
+        fused,
+    )
     from huffman_tpu_torch.runtime import kernels
 
     dev = torch.device(DEVICE)
@@ -118,83 +217,136 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
 
-    silesia = silesia_like(SILESIA_BYTES, seed=7).tobytes()
+    silesia = silesia_like(BIG, seed=7).tobytes()
+    wide = wide30k(BIG).tobytes()
+    full = zipf_pairs(BIG, 65536, np.random.default_rng(11)).tobytes()
     small = zipf_pairs(TRANSLATE_BYTES, 300, np.random.default_rng(5)).tobytes()
+    n_full = int(np.unique(np.frombuffer(full, "<u2")).size)
+    print(f"full-alphabet input: {n_full} distinct symbols")
+    if n_full <= 32768:
+        raise AssertionError("the full-alphabet input must exceed the 32768 tier")
 
-    # Phase 2: kernel vs plain at the main path's shapes.
-    blob, enc = capture(
-        [(bf, "gather_codes"), (cuda_encode, "pack_lanes")], ht.compress, silesia, dev
-    )
+    # Phase 2: kernel vs plain at the main paths' shapes.
+    fused_calls = [(fused, "histogram"), (device_codebook, "package_merge"),
+                   (fused, "gather_rank_select"), (fused, "gather_rank_canonical"),
+                   (cuda_encode, "pack_lanes")]
+    blob, enc = capture(fused_calls, ht.compress, silesia, dev)
+    _, enc_wide = capture(fused_calls, ht.compress, wide, dev)
+    _, enc_full = capture(fused_calls, ht.compress, full, dev)
+    codebook = bf.ParsedContainer(blob).codebook
+    _, enc_host = capture([(bf, "gather_codes")], ht.compress, silesia, dev, codebook=codebook)
     _, dec = capture([(bf, "decode_groups"), (bf, "gather_u16_pairs")], ht.decompress, blob, dev)
     _, dec_tr = capture([(bf, "decode_groups")], ht.decompress, ht.compress(small, dev), dev)
     assert not dec["decode_groups"][4] and dec_tr["decode_groups"][4], "decode modes"
-    checks = [
-        ("gather_codes", cuda_gather.gather_codes, cuda_gather.gather_codes_plain, enc["gather_codes"], 20, 3),
-        ("pack_lanes", cuda_encode.pack_lanes, cuda_encode.pack_lanes_plain, enc["pack_lanes"], 10, 2),
-        ("decode_groups", cuda_decode.decode_groups, cuda_decode.decode_groups_plain, dec["decode_groups"], 5, 2),
-        ("gather_u16_pairs", cuda_gather.gather_u16_pairs, cuda_gather.gather_u16_pairs_plain, dec["gather_u16_pairs"], 20, 3),
-        ("decode_groups[translate]", cuda_decode.decode_groups, cuda_decode.decode_groups_plain, dec_tr["decode_groups"], 5, 2),
+    assert not enc_wide["gather_rank_canonical"][-1] and enc_full["gather_rank_canonical"][-1], \
+        "canonical gather modes"
+    K = [a["package_merge"][3] for a in (enc, enc_wide, enc_full)]
+    assert K == [4096, 32768, 65536], f"tiers {K}"
+
+    cg, ce, cd, ch, dc = cuda_gather, cuda_encode, cuda_decode, cuda_hist, device_codebook
+    checks = [  # (record name, variant, kernel, plain, args, iters, plain iters)
+        ("histogram", "silesia", ch.histogram, ch.histogram_plain, enc["histogram"], 20, 3),
+        ("histogram", "full", ch.histogram, ch.histogram_plain, enc_full["histogram"], 20, 3),
+        ("package_merge", "K=4096", dc.package_merge, dc.package_merge_plain, enc["package_merge"], 10, 2),
+        ("package_merge", "K=32768", dc.package_merge, dc.package_merge_plain, enc_wide["package_merge"], 10, 2),
+        ("package_merge", "K=65536", dc.package_merge, dc.package_merge_plain, enc_full["package_merge"], 10, 2),
+        ("gather_rank_select", "silesia", cg.gather_rank_select, cg.gather_rank_select_plain,
+         enc["gather_rank_select"], 20, 2),
+        ("gather_rank_canonical", "rank stage, wide30k", cg.gather_rank_canonical,
+         cg.gather_rank_canonical_plain, enc_wide["gather_rank_canonical"], 20, 2),
+        ("gather_rank_canonical", "identity, full", cg.gather_rank_canonical,
+         cg.gather_rank_canonical_plain, enc_full["gather_rank_canonical"], 20, 2),
+        ("pack_lanes", "silesia", ce.pack_lanes, ce.pack_lanes_plain, enc["pack_lanes"], 10, 2),
+        ("gather_codes", "silesia", cg.gather_codes, cg.gather_codes_plain, enc_host["gather_codes"], 20, 3),
+        ("decode_groups", "rank mode", cd.decode_groups, cd.decode_groups_plain, dec["decode_groups"], 5, 2),
+        ("gather_u16_pairs", "silesia", cg.gather_u16_pairs, cg.gather_u16_pairs_plain,
+         dec["gather_u16_pairs"], 20, 3),
+        ("decode_groups", "translate mode", cd.decode_groups, cd.decode_groups_plain,
+         dec_tr["decode_groups"], 5, 2),
     ]
     records = {}
-    for name, kernel, plain, args, iters, plain_iters in checks:
+    for name, variant, kernel, plain, args, iters, plain_iters in checks:
         got, want = kernel(*args), plain(*args)
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         ms = cuda_ms(lambda: kernel(*args), iters)
         plain_ms = cuda_ms(lambda: plain(*args), plain_iters)
+        lib_fn = library_call(name, args)
+        library_ms = cuda_ms(lib_fn, iters) if lib_fn else None
+        bound_ms, bound_by = bound(name, args, got)
         shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
-        print(f"kernel {name}: shapes {shapes} max_abs_err {err} "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms ({card})")
+        lib_txt = f" library {library_ms:.4f} ms" if lib_fn else ""
+        if name == "package_merge":
+            # Its time is set by a chain of dependent launches, which the
+            # byte and operation bound does not see.
+            n_sym, max_len = args[0].numel(), args[2]
+            tile = min(n_sym, 2048)
+            chain = 3 + (n_sym // tile).bit_length() - 1 + max_len - 1
+            lib_txt += f" dependent launches {chain}"
+        print(f"kernel {name} [{variant}]: shapes {shapes} max_abs_err {err} kernel "
+              f"{ms:.4f} ms plain {plain_ms:.4f} ms{lib_txt} bound {bound_ms:.4f} ms "
+              f"({bound_by}) ({card})")
         if err != 0:
-            raise AssertionError(f"{name}: kernel differs from its plain version")
-        base = name.split("[")[0]
-        if base not in records:
-            records[base] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        else:
-            records[base]["max_abs_err"] = max(records[base]["max_abs_err"], err)
+            raise AssertionError(f"{name} [{variant}]: kernel differs from its plain version")
+        rec = {"variant": variant, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+        records.setdefault(name, []).append(rec)
+    del enc, enc_wide, enc_full, enc_host, dec, dec_tr, checks
 
-    # Phase 3: the slice, counting launches.
-    inputs = {
-        "silesia_like_32MiB": silesia,
-        "wide30k_32MiB": wide30k(SILESIA_BYTES).tobytes(),
-        "zipf300_8MiB": small,
-        "odd_length": small[: (1 << 20) + 1],
-        "one_byte": b"\x01",
-        "empty": b"",
-        "random_bytes": np.random.default_rng(1).integers(0, 256, 1 << 20, dtype=np.uint8).tobytes(),
-    }
-    kernels.reset_launch_counts()
-    for name, data in inputs.items():
+    # Phase 3: the paths, counting launches.
+    def drive(name, data, **kwargs):
         times_c, times_d = [], []
         for _ in range(3 if len(data) >= TRANSLATE_BYTES else 1):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            blob = ht.compress(data, dev)
+            blob = ht.compress(data, **kwargs)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            out = ht.decompress(blob, dev)
+            out = ht.decompress(blob)
             torch.cuda.synchronize()
             times_c.append(t1 - t0)
             times_d.append(time.perf_counter() - t1)
             if out != data:
                 raise AssertionError(f"{name}: decompress(compress(x)) != x")
-        if blob != ht.compress(data, "cpu"):
-            raise AssertionError(f"{name}: card container differs from the CPU path's")
         c, d = statistics.median(times_c), statistics.median(times_d)
-        gbps = (f"compress {len(data) / c / 1e9:.3f} GB/s, decompress "
+        rate = (f"compress {len(data) / c / 1e9:.3f} GB/s, decompress "
                 f"{len(data) / d / 1e9:.3f} GB/s" if len(data) >= TRANSLATE_BYTES else
                 f"compress {c * 1e3:.1f} ms, decompress {d * 1e3:.1f} ms")
         print(f"slice {name}: {len(data)} B -> {len(blob)} B (ratio "
               f"{len(blob) / max(len(data), 1):.4f}); median of {len(times_c)}: "
-              f"{gbps} ({card})")
-    counts = kernels.launch_counts()
-    missing = [k for k, v in counts.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+              f"{rate} ({card})")
+        return blob
+
+    def run_path(label, path_kernels, inputs):
+        kernels.reset_launch_counts()
+        blobs = {name: drive(name, data, **kw) for name, (data, kw) in inputs.items()}
+        counts = kernels.launch_counts()
+        print(f"path {label}: launches {json.dumps({k: counts[k] for k in path_kernels})}")
+        missing = [k for k in path_kernels if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels never launched: {missing}")
+        for name, (data, kw) in inputs.items():
+            if blobs[name] != ht.compress(data, "cpu", **kw):
+                raise AssertionError(f"{name}: card container differs from the CPU path's")
+        return counts
+
+    fused_counts = run_path("fused route", FUSED_PATH, {
+        "silesia_like_32MiB": (silesia, {}),
+        "wide30k_32MiB": (wide, {}),
+        "full_alphabet_32MiB": (full, {}),
+        "zipf300_8MiB": (small, {}),
+    })
+    host_counts = run_path("host-codebook route", HOST_PATH, {
+        "silesia_like_32MiB_given_codebook": (silesia, {"codebook": codebook}),
+        "odd_length": (small[: (1 << 20) + 1], {}),
+        "one_byte": (b"\x01", {}),
+        "empty": (b"", {}),
+        "random_bytes": (np.random.default_rng(1).integers(0, 256, 1 << 20, dtype=np.uint8).tobytes(), {}),
+    })
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": counts[name], **records[name]}
+         "launches": fused_counts[name] + host_counts[name], **slowest(records[name])}
         for name, (src, tpu) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,21 @@
 """huffman_tpu_torch: the PyTorch/CUDA port of huffman_tpu.
 
 It compresses to and decompresses from the native HTPU v2 container,
-byte-identical to the JAX package, with the device work in four CUDA
-kernels written for Hopper (``csrc/``, built with ``nvcc`` at first use).
-The host-only parts of ``huffman_tpu`` (codebook, container headers,
-interleave protocol, native runtime) are imported from it, not copied.
-This package never imports JAX.
+byte-identical to the JAX package, with the device work in CUDA kernels
+written for Hopper (``csrc/``, built with ``nvcc`` at first use). The host
+code it needs from ``huffman_tpu`` (codebook, container header and parser,
+interleave protocol helpers, corpora) is copied into this package under
+the same module names: it imports nothing of ``huffman_tpu`` and never
+imports JAX.
 
 Public API:
-    compress(data, device, ...) / decompress(blob, device)
+    compress(data, device="cuda", ...) / decompress(blob, device="cuda")
+    Codebook
     resolve_device(device)
 """
 
 from .api import compress, decompress
+from .codebook import Codebook
 from .device import resolve_device
 
-__all__ = ["compress", "decompress", "resolve_device"]
+__all__ = ["Codebook", "compress", "decompress", "resolve_device"]

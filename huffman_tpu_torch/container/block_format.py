@@ -1,20 +1,26 @@
-"""HTPU v2 container on the device: counterpart of the device branches of
-huffman_tpu/container/block_format.py.
+"""HTPU v2 container: counterpart of huffman_tpu/container/block_format.py.
 
-The wire format, the header, the codebook and the stream layout are the
-JAX package's own host code, imported read-only: ``_build_header``,
-``_codebook_to_header``, ``_emit_streams``, ``ParsedContainer`` and
-``_host_codebook``. This module ports what ran on the TPU:
+The host side is the port's own copy of the JAX package's: the header
+(``_build_header``, ``_codebook_to_header``, ``_codebook_from_header``),
+the payload tail (``_emit_streams``), the parser (``ParsedContainer``, v2
+and stored containers) and the host codebook (``_host_codebook``). The
+device side is what ran on the TPU, in two compress routes chosen as the
+JAX package chooses them on a device:
 
-* encode: bytes -> byte-pair symbols -> (code, length) gather (K3) ->
-  protocol lengths and per-group word totals -> lane pack (K4) and stream
-  assembly, the path of ``_encode_streams_jax``;
-* decode: group decode (K1), rank -> symbol pairs (K2) for alphabets past
-  the in-kernel tier, and the block-major reorder of ``_postpack_v2``.
+* the fused route (``_compress_v2_fused``), for inputs of at least
+  ``DEVICE_MIN_PAIRS`` symbols with no given codebook and a length limit
+  in 16..26: histogram, package-merge codebook, rank gather and lane pack
+  all on the device (``ops/fused.py``);
+* the host-codebook route otherwise: the codebook is built on the host (or
+  given), and the device gathers codes (K3) and packs lanes (K4).
 
-Containers are byte-identical to ``huffman_tpu.compress(data,
-backend="numpy")``: the codebook is the same host-built package-merge code
-and the streams follow the same decode protocol.
+Decompress runs the group decode (K1), rank -> symbol pairs (K2) for
+alphabets past the in-kernel tier, and the block-major reorder of
+``_postpack_v2``.
+
+Both routes write containers byte-identical to ``huffman_tpu.compress(data,
+backend="numpy")``: the fused route's package-merge lengths equal the
+host's, and the streams follow the same decode protocol.
 """
 
 from __future__ import annotations
@@ -24,33 +30,100 @@ import zlib
 import numpy as np
 import torch
 
-from huffman_tpu.codebook import Codebook
-from huffman_tpu.constants import (
+from ..codebook import Codebook, package_merge_lengths
+from ..constants import (
     DEFAULT_BLOCK_SYMBOLS,
     DEFAULT_MAX_CODE_LEN,
     GROUP_LANES,
+    MAX_CODE_LEN,
+    MAX_SYMBOLS,
+    NATIVE_MAGIC,
 )
-from huffman_tpu.container import interleave as il
-from huffman_tpu.container.block_format import (
-    _HEADER_BYTES,
-    ParsedContainer,
-    _bucket_words,
-    _build_header,
-    _codebook_to_header,
-    _emit_streams,
-    _host_codebook,
-)
-from huffman_tpu.container.reference_format import (
-    bytes_to_symbols,
-    histogram_host,
-    symbols_to_bytes,
-)
-
 from ..ops.cuda_decode import TRANSLATE_MAX_ALPHABET, decode_groups
-from ..ops.cuda_encode import pack_streams
+from ..ops.cuda_encode import encode_streams
 from ..ops.cuda_gather import gather_codes, gather_u16_pairs
-from ..ops.tables import PACKED_MAX_LEN, Tables, tables_from_codebook
+from ..ops.fused import encode_device_bytes
+from ..ops.histogram import bytes_to_symbols_device
+from ..ops.tables import PACKED_MAX_LEN, tables_from_codebook
 from ..u32 import from_numpy_u32, to_numpy_u32
+from . import interleave as il
+from .reference_format import bytes_to_symbols, histogram_host, symbols_to_bytes
+
+_HEADER_BYTES = 32
+_COUNTS_BYTES = 4 * MAX_CODE_LEN
+
+# Inputs of at least this many symbols take the fused route, as in the JAX
+# package.
+DEVICE_MIN_PAIRS = 1 << 21
+
+
+# --------------------------------------------------------------------------
+# header and payload tail (host)
+# --------------------------------------------------------------------------
+
+def _codebook_to_header(cb: Codebook) -> bytes:
+    lens_in_order = cb.lengths[cb.sym_order]
+    counts = np.bincount(lens_in_order, minlength=MAX_CODE_LEN + 1)[1:].astype("<u4")
+    return counts.tobytes() + cb.sym_order.astype("<u2").tobytes()
+
+
+def _codebook_from_header(blob: bytes, n_unique: int) -> tuple[Codebook, int]:
+    counts = np.frombuffer(blob[_HEADER_BYTES : _HEADER_BYTES + _COUNTS_BYTES], dtype="<u4")
+    off = _HEADER_BYTES + _COUNTS_BYTES
+    syms = np.frombuffer(blob[off : off + 2 * n_unique], dtype="<u2")
+    off += 2 * n_unique
+    if int(counts.sum()) != n_unique:
+        raise ValueError("corrupt codebook: counts do not sum to n_unique")
+    lengths = np.zeros(MAX_SYMBOLS, dtype=np.uint8)
+    lengths[syms] = np.repeat(
+        np.arange(1, MAX_CODE_LEN + 1, dtype=np.uint8), counts.astype(np.int64)
+    )
+    return Codebook.from_lengths(lengths), off
+
+
+def _build_header(version, data, is_odd, last_byte, cb, B, nblocks) -> bytearray:
+    header = bytearray(_HEADER_BYTES)
+    header[0:4] = int(NATIVE_MAGIC).to_bytes(4, "little")
+    header[4] = version
+    header[5] = 1 if is_odd else 0  # flags: bit0 odd input
+    header[6] = last_byte
+    header[7] = cb.max_len
+    header[8:16] = len(data).to_bytes(8, "little")
+    header[16:20] = B.to_bytes(4, "little")
+    header[20:24] = nblocks.to_bytes(4, "little")
+    header[24:28] = cb.n_unique.to_bytes(4, "little")
+    header[28:32] = (zlib.crc32(data) & 0xFFFFFFFF).to_bytes(4, "little")
+    return header
+
+
+def _emit_streams(out: bytearray, streams, nblocks: int) -> bytes:
+    """Append the v2 payload tail (ngroups, per-group word counts, stream
+    words), stripping pad-lane preload zeros: each stream's first
+    2*GROUP_LANES words are w0[lane 0..1023], w1[lane 0..1023]; only the
+    first n_real of each half carry data. The parser reinserts the
+    zeros."""
+    stripped = []
+    for g, s in enumerate(streams):
+        n_real = max(0, min(GROUP_LANES, nblocks - g * GROUP_LANES))
+        stripped.append(
+            np.concatenate(
+                [s[:n_real], s[GROUP_LANES : GROUP_LANES + n_real], s[2 * GROUP_LANES :]]
+            )
+        )
+    out += len(stripped).to_bytes(4, "little")
+    out += np.array([s.size for s in stripped], dtype="<u4").tobytes()
+    for s in stripped:
+        out += s.astype("<u4").tobytes()
+    return bytes(out)
+
+
+def _host_codebook(freqs: np.ndarray, max_code_len: int | None) -> Codebook:
+    """Codebook from host frequencies: optimal length-limited package-merge
+    at ``max_code_len`` (the fused route's construction, so both routes
+    agree byte for byte), or the unlimited two-queue code for None."""
+    if max_code_len is not None:
+        return Codebook.from_lengths(package_merge_lengths(freqs, max_code_len))
+    return Codebook.from_frequencies(freqs)
 
 
 # --------------------------------------------------------------------------
@@ -64,78 +137,179 @@ def compress(
     max_code_len: int | None = DEFAULT_MAX_CODE_LEN,
     codebook: Codebook | None = None,
 ) -> bytes:
-    """HTPU v2 container of ``data``, payload encoded on ``device``. The
-    codebook is built on the host (length-limited package-merge at
-    ``max_code_len``; None for the unlimited Huffman code) unless given."""
+    """HTPU v2 container of ``data``, payload encoded on ``device``, by the
+    route the JAX package's ``compress`` takes on a device. ``codebook`` is
+    the port's ``Codebook`` (a JAX one carries over as
+    ``Codebook.from_lengths(jax_codebook.lengths)``); giving one selects
+    the host-codebook route."""
     data = bytes(data)
     if len(data) > (1 << 32):
         raise ValueError("input exceeds 4 GiB, the bound of one HTPU container")
     if block_symbols < 1:
         raise ValueError("block_symbols must be positive")
-    symbols, is_odd, last_byte = bytes_to_symbols(data)
-    n_pairs = symbols.size
+    n_pairs = len(data) // 2
+    is_odd = len(data) % 2 == 1
+    last_byte = data[-1] if is_odd else 0
     # The decoder emits packed 16-bit symbol pairs: blocks hold an even
     # symbol count.
     B = block_symbols + (block_symbols & 1)
     nblocks = (n_pairs + B - 1) // B
-    if codebook is None:
-        codebook = _host_codebook(histogram_host(symbols), max_code_len)
-
-    out = _build_header(2, data, is_odd, last_byte, codebook, B, nblocks)
-    out += _codebook_to_header(codebook)
-    if nblocks == 0:
-        out += (0).to_bytes(4, "little")  # ngroups
+    if (
+        codebook is None
+        and nblocks > 0
+        and max_code_len is not None
+        and 16 <= max_code_len <= PACKED_MAX_LEN  # >= 16: any alphabet fits
+        and DEVICE_MIN_PAIRS <= n_pairs < (1 << 30)
+    ):
+        out, codebook = _compress_v2_fused(
+            data, n_pairs, is_odd, last_byte, B, nblocks, max_code_len, device
+        )
     else:
-        if codebook.max_len > PACKED_MAX_LEN:
-            raise NotImplementedError(
-                f"codebooks deeper than {PACKED_MAX_LEN} bits (ROADMAP.md, "
-                "Queue 1: v1 / reference-format device paths and wide codes)"
-            )
-        tables = tables_from_codebook(codebook, device)
-        n_lanes = -(-nblocks // GROUP_LANES) * GROUP_LANES
-        raw = np.frombuffer(data, np.uint8, count=2 * n_pairs)
-        streams = _encode_streams(raw, tables, n_lanes, B, nblocks, device)
-        out = _emit_streams(out, streams, nblocks)
+        out, codebook = _compress_host_codebook(
+            data, is_odd, last_byte, codebook, B, nblocks, max_code_len, device
+        )
     if len(out) >= _HEADER_BYTES + len(data):
         # Incompressible input: stored mode (flags bit2), header + raw bytes.
         header = _build_header(1, data, False, 0, codebook, B, 0)
         header[5] |= 4
         return bytes(header) + data
-    return bytes(out)
+    return out
 
 
-def _encode_streams(
-    raw: np.ndarray,        # (2 * n_pairs,) u8 input bytes (odd tail excluded)
-    tables: Tables,
-    n_lanes: int,
-    B: int,
-    n_real: int,            # real block lanes
-    device: torch.device,
-) -> list[np.ndarray]:
-    """Device encode straight to the per-group interleaved streams."""
-    n_pairs = raw.size // 2
+def _compress_host_codebook(data, is_odd, last_byte, codebook, B, nblocks,
+                            max_code_len, device):
+    """The container with a host-built (or given) codebook; the payload is
+    encoded on ``device``. Returns (container bytes, codebook)."""
+    if codebook is None:
+        symbols, _, _ = bytes_to_symbols(data)
+        codebook = _host_codebook(histogram_host(symbols), max_code_len)
+    out = _build_header(2, data, is_odd, last_byte, codebook, B, nblocks)
+    out += _codebook_to_header(codebook)
+    if nblocks == 0:
+        out += (0).to_bytes(4, "little")  # ngroups
+        return bytes(out), codebook
+    if codebook.max_len > PACKED_MAX_LEN:
+        raise NotImplementedError(
+            f"codebooks deeper than {PACKED_MAX_LEN} bits (ROADMAP.md, "
+            "Queue 1: v1 / reference-format device paths and wide codes)"
+        )
+    tables = tables_from_codebook(codebook, device)
+    n_pairs = len(data) // 2
+    sym = bytes_to_symbols_device(_upload_bytes(data, n_pairs, nblocks, B, device))
+    codes, lens = gather_codes(sym.reshape(-1, B), tables.enc_packed, n_pairs)
+    streams, counts = encode_streams(codes, lens, n_pairs, tables.min_len, nblocks)
+    return _emit_streams(out, _streams_to_host(streams, counts), nblocks), codebook
+
+
+def _compress_v2_fused(data, n_pairs, is_odd, last_byte, B, nblocks,
+                       max_code_len, device):
+    """The container by the fused device encoder (``ops/fused.py``): the
+    host receives the lengths (for the codebook header) and the trimmed
+    streams. Returns (container bytes, codebook)."""
+    raw = _upload_bytes(data, n_pairs, nblocks, B, device)
+    r = encode_device_bytes(raw, n_pairs, B, max_code_len)
+    cb = Codebook.from_lengths(r["lengths"].cpu().numpy().astype(np.uint8))
+    out = _build_header(2, data, is_odd, last_byte, cb, B, nblocks)
+    out += _codebook_to_header(cb)
+    return _emit_streams(out, _streams_to_host(r["streams"], r["counts"]), nblocks), cb
+
+
+def _upload_bytes(data: bytes, n_pairs: int, nblocks: int, B: int,
+                  device: torch.device) -> torch.Tensor:
+    """The input's byte pairs (the odd tail excluded), zero-padded to
+    whole groups of blocks, as a (n_lanes * B * 2,) uint8 tensor on
+    ``device``."""
+    n_lanes = -(-nblocks // GROUP_LANES) * GROUP_LANES
     padded = np.zeros(n_lanes * B * 2, dtype=np.uint8)
-    padded[: raw.size] = raw
-    # Little-endian byte pairs ARE the u16 symbols: a reinterpreting view on
-    # the device does what bytes_to_symbols_device does.
-    symbols = torch.from_numpy(padded).to(device).view(torch.int16).reshape(n_lanes, B)
-    codes, lens = gather_codes(symbols, tables.enc_packed, n_pairs)
-    pos = torch.arange(n_lanes * B, device=device).reshape(n_lanes, B)
-    # Protocol lengths: garbage steps past the data consume min_len zero bits.
-    eff = torch.where(pos < n_pairs, lens, tables.min_len).to(torch.int32)
-    lane = torch.arange(n_lanes, device=device)
-    bits = torch.where(lane < n_real, eff.sum(dim=1), 0)
-    gwords = (bits >> 5).reshape(-1, GROUP_LANES).sum(dim=1)
-    cap = _bucket_words(max(int(gwords.max()), 128))
-    streams, counts = pack_streams(codes, eff, n_real, cap)
+    padded[: 2 * n_pairs] = np.frombuffer(data, np.uint8, count=2 * n_pairs)
+    return torch.from_numpy(padded).to(device)
+
+
+def _streams_to_host(streams: torch.Tensor, counts: torch.Tensor) -> list[np.ndarray]:
+    """Per-group u32 streams on the host, each trimmed to its word count;
+    only the longest group's words cross the link."""
     counts = counts.cpu().numpy()
     host = to_numpy_u32(streams[:, : int(counts.max())])
     return [host[g, : counts[g]] for g in range(host.shape[0])]
 
 
 # --------------------------------------------------------------------------
-# decompress
+# parse + decompress
 # --------------------------------------------------------------------------
+
+class ParsedContainer:
+    """Parsed HTPU header and payload (host side): v2 payloads split into
+    per-group streams, stored payloads as they are; v1 payloads are not
+    parsed (the port does not decode them)."""
+
+    def __init__(self, blob: bytes):
+        if len(blob) < _HEADER_BYTES or int.from_bytes(blob[0:4], "little") != NATIVE_MAGIC:
+            raise ValueError("not an HTPU container")
+        self.version = blob[4]
+        if self.version not in (1, 2):
+            raise ValueError(f"unsupported container version {blob[4]}")
+        self.is_odd = bool(blob[5] & 1)
+        self.external_codebook = bool(blob[5] & 2)
+        self.stored = bool(blob[5] & 4)
+        self.last_byte = blob[6]
+        self.max_len = blob[7]
+        self.original_size = int.from_bytes(blob[8:16], "little")
+        self.block_symbols = int.from_bytes(blob[16:20], "little")
+        self.num_blocks = int.from_bytes(blob[20:24], "little")
+        self.n_unique = int.from_bytes(blob[24:28], "little")
+        self.crc32 = int.from_bytes(blob[28:32], "little")
+        if self.stored:
+            self.codebook = None
+            self.payload = blob[_HEADER_BYTES:]
+            return
+        # Structural sanity before any size-driven allocation (a corrupt
+        # count field must raise, not MemoryError).
+        if self.block_symbols == 0 or self.block_symbols > (1 << 24):
+            raise ValueError("corrupt container: bad block_symbols")
+        n_pairs = (self.original_size - (1 if self.is_odd else 0)) // 2
+        expect_blocks = (n_pairs + self.block_symbols - 1) // self.block_symbols
+        if self.num_blocks != expect_blocks:
+            raise ValueError("corrupt container: block count mismatch")
+        if self.n_unique > MAX_SYMBOLS:
+            raise ValueError("corrupt container: bad unique count")
+        if self.external_codebook:
+            raise NotImplementedError(
+                "HTPU shards with an external codebook (HTPX archives): "
+                "ROADMAP.md, Queue 1, front-ends and HTPS/HTPX"
+            )
+        self.codebook, off = _codebook_from_header(blob, self.n_unique)
+        if self.version == 1:
+            return  # block slabs: not decoded by the port
+        self.ngroups = int.from_bytes(blob[off : off + 4], "little")
+        off += 4
+        if self.ngroups != (self.num_blocks + GROUP_LANES - 1) // GROUP_LANES:
+            raise ValueError("corrupt container: group count mismatch")
+        self.group_words = np.frombuffer(
+            blob[off : off + 4 * self.ngroups][: (len(blob) - off) & ~3], dtype="<u4"
+        ).astype(np.int64)
+        off += 4 * self.ngroups
+        if self.group_words.size != self.ngroups:
+            raise ValueError("truncated container: group table")
+        if self.ngroups and self.group_words.max() > (len(blob) + 3) // 4:
+            raise ValueError("corrupt container: group words exceed payload")
+        total = int(self.group_words.sum())
+        raw = blob[off : off + 4 * total]
+        if len(raw) != 4 * total:
+            raise ValueError("truncated container payload")
+        words = np.frombuffer(raw, dtype="<u4")
+        parts = np.split(words, np.cumsum(self.group_words)[:-1])
+        # Reinsert the pad-lane preload zeros stripped by the writer.
+        self.streams = []
+        for g, s in enumerate(parts):
+            n_real = max(0, min(GROUP_LANES, self.num_blocks - g * GROUP_LANES))
+            w0 = np.zeros(GROUP_LANES, dtype=np.uint32)
+            w1 = np.zeros(GROUP_LANES, dtype=np.uint32)
+            w0[:n_real] = s[:n_real]
+            w1[:n_real] = s[n_real : 2 * n_real]
+            self.streams.append(
+                np.concatenate([w0, w1, s[2 * n_real :].astype(np.uint32)])
+            )
+
 
 def decompress(blob: bytes, device: torch.device) -> bytes:
     """Original bytes of an HTPU container, payload decoded on ``device``."""

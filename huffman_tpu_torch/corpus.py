@@ -1,17 +1,51 @@
 """The repo's benchmark corpora, made from a seed.
 
-``silesia_like`` and ``zipf_pairs`` are the JAX package's own generators
-(huffman_tpu/utils/benchmark.py, host-only numpy), so both packages
-measure the same bytes; ``wide30k`` is bench.py's 30,000-symbol corpus.
+``zipf_pairs`` and ``silesia_like`` are the port's own copies of the JAX
+package's generators (huffman_tpu/utils/benchmark.py): the same seed gives
+the same bytes, so both packages measure the same inputs. ``wide30k`` is
+bench.py's 30,000-symbol corpus.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from huffman_tpu.utils.benchmark import silesia_like, zipf_pairs
-
 __all__ = ["silesia_like", "wide30k", "zipf_pairs"]
+
+
+def zipf_pairs(
+    n_bytes: int,
+    n_unique: int,
+    rng: np.random.Generator,
+    expo: float = 0.65,
+) -> np.ndarray:
+    """Zipf(expo) byte-pair corpus over ``n_unique`` uniformly drawn 16-bit
+    symbols. Returns uint8 bytes, little-endian pairs."""
+    a = rng.choice(65536, n_unique, replace=False).astype(np.uint16)
+    p = 1.0 / np.arange(1, n_unique + 1) ** expo
+    p /= p.sum()
+    return rng.choice(a, n_bytes // 2, p=p).astype("<u2").view(np.uint8)
+
+
+def silesia_like(n_bytes: int, seed: int = 0) -> np.ndarray:
+    """Synthetic corpus with text-like symbol statistics: 80% Zipf(1.1)
+    text over 3,000 printable byte pairs, 20% uniform noise over 1,024
+    pairs. About 4,000 distinct symbols and a ~0.56 ratio."""
+    rng = np.random.default_rng(seed)
+    n_text = int(n_bytes * 0.8)
+    alphabet = rng.choice(128 * 128, size=3000, replace=False).astype(np.uint16)
+    ranks = np.arange(1, alphabet.size + 1, dtype=np.float64)
+    probs = 1.0 / ranks**1.1
+    probs /= probs.sum()
+    text_syms = rng.choice(alphabet, size=n_text // 2, p=probs)
+    text = text_syms.astype("<u2").view(np.uint8)
+    noise_alpha = rng.choice(65536, size=1024, replace=False).astype(np.uint16)
+    noise_syms = rng.choice(noise_alpha, size=(n_bytes - text.size) // 2)
+    noise = noise_syms.astype("<u2").view(np.uint8)
+    out = np.concatenate([text, noise])
+    if out.size < n_bytes:  # odd-length tail byte
+        out = np.concatenate([out, rng.integers(0, 256, 1, dtype=np.uint8)])
+    return out
 
 
 def wide30k(n_bytes: int, seed: int = 3) -> np.ndarray:

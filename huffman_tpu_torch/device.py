@@ -1,6 +1,7 @@
 """Device selection for the PyTorch port.
 
-Every public function of the port takes an explicit ``device``. Asking for
+The public entry points run on the card (``device="cuda"``) unless the
+caller asks for the CPU, where the kernels' plain versions run. Asking for
 CUDA on a machine without a usable card raises; the port never substitutes
 the CPU for a device that was asked for.
 """

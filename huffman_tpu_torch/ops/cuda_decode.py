@@ -11,15 +11,15 @@ In translate mode (alphabets up to ``TRANSLATE_MAX_ALPHABET``) the words
 hold symbols; otherwise they hold the canonical ranks' low 16 bits, which
 ``ops.cuda_gather.gather_u16_pairs`` turns into symbols. Ranks past the
 alphabet (only possible in corrupt streams) read the last symbol, as in
-the numpy twin ``huffman_tpu.container.interleave.decode_interleaved_numpy``.
+the JAX package's numpy twin
+``huffman_tpu.container.interleave.decode_interleaved_numpy``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from huffman_tpu.constants import GROUP_LANES, PRELOAD_WORDS, REFILL_THRESHOLD
-
+from ..constants import GROUP_LANES, PRELOAD_WORDS, REFILL_THRESHOLD
 from ..runtime import kernels
 from ..u32 import MASK32, narrow, shl, widen
 from .tables import Tables

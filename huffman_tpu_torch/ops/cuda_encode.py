@@ -6,6 +6,8 @@ huffman_tpu/ops/pallas_encode.py.
 step and the final left-aligned partial word. ``pack_streams`` assembles
 the interleaved group streams from it with vectorised tensor ops, as
 ``pack_streams_pallas`` does with XLA around its Pallas packer.
+``encode_streams`` is what both compress routes call: protocol lengths,
+a bucketed ``words_cap`` from the groups' word totals, and the pack.
 
 Stream identity (docs/FORMATS.md §3): with one bit cumsum driving both
 encoder and decoder, the decoder consumes a lane's word j at the step the
@@ -20,8 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from huffman_tpu.constants import GROUP_LANES, PRELOAD_WORDS
-
+from ..constants import GROUP_LANES, PRELOAD_WORDS
 from ..runtime import kernels
 from ..u32 import narrow, shl, widen
 
@@ -122,3 +123,38 @@ def pack_streams(
     body[g_idx, slot.long()] = step_major(later)[g_idx, s_idx]
     streams = torch.cat([step_major(by_index[:, :PRELOAD_WORDS]), body], dim=1)
     return streams, counts + PRELOAD_WORDS * GROUP_LANES
+
+
+def bucket_words(w: int) -> int:
+    """Round a stream buffer's word count up to a quarter-octave bucket
+    (2^k x {1, 1.25, 1.5, 1.75}), the JAX package's ``_bucket_words``."""
+    w = max(w, 8)
+    p = 8
+    while p * 2 < w:
+        p <<= 1
+    for m in (4, 5, 6, 7, 8):
+        if w <= p * m // 4:
+            return p * m // 4
+    return p * 2
+
+
+def encode_streams(
+    codes: torch.Tensor,    # (n_lanes, B) int32 codewords (0 past the data)
+    lens: torch.Tensor,     # (n_lanes, B) int32 code lengths (0 past the data)
+    n_pairs: int,           # real symbols (row-major)
+    min_len,                # shortest code length: int or 0-dim tensor
+    n_real: int,            # real block lanes
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Interleaved group streams of a coded block grid: ``pack_streams``
+    with the protocol lengths (garbage steps past the data consume
+    ``min_len`` zero bits) and the bucketed ``words_cap`` of the host
+    container path. Reads the groups' largest word total to the host."""
+    n_lanes, B = codes.shape
+    dev = codes.device
+    pos = torch.arange(n_lanes * B, device=dev).reshape(n_lanes, B)
+    eff = torch.where(pos < n_pairs, lens, min_len).to(torch.int32)
+    lane = torch.arange(n_lanes, device=dev)
+    bits = torch.where(lane < n_real, eff.sum(dim=1), 0)
+    gwords = (bits >> 5).reshape(-1, GROUP_LANES).sum(dim=1)
+    cap = bucket_words(max(int(gwords.max()), 128))
+    return pack_streams(codes, eff, n_real, cap)

@@ -1,4 +1,5 @@
-"""Table lookups (K2, K3): counterpart of huffman_tpu/ops/pallas_gather.py.
+"""Table lookups (K2, K3, K8, K9): counterpart of
+huffman_tpu/ops/pallas_gather.py.
 
 * ``gather_u16_pairs`` (K2): both 16-bit halves of each packed rank word
   index the canonical symbol table, giving packed symbol pairs: the
@@ -7,19 +8,33 @@
   ``len << 26 | code`` table, with the encoder's valid mask applied. The
   TPU needed two kernels for this one function (a row-displacement table
   and a packed-16 dense table); on the GPU the dense table is enough.
+* ``build_rank_select`` (tensor ops): the succinct dictionary of the fused
+  encoder, presence mask words, their exclusive counts, and a dense
+  rank-ordered payload table.
+* ``gather_rank_select`` (K8): symbol -> (code, length) through that
+  dictionary, payload ``len << 26 | code``.
+* ``gather_rank_canonical`` (K9): symbol -> canonical rank (through the
+  dictionary, or the symbol itself at the full-alphabet tier) -> length by
+  compares against the class starts, code = rank - base[len] mod 2^32.
 
-Each wrapper launches its CUDA kernel (``csrc/gather.cu``) for CUDA
-tensors and its plain PyTorch version for CPU tensors.
+K8 and K9, like K3, read the byte view as u16 symbols and give code 0,
+length 0 at positions at or past ``n_valid``. Each wrapper launches its
+CUDA kernel (``csrc/gather.cu``, ``csrc/rank_gather.cu``) for CUDA tensors
+and its plain PyTorch version for CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..constants import MAX_CODE_LEN, MAX_SYMBOLS
 from ..runtime import kernels
-from ..u32 import narrow, widen
+from ..u32 import MASK32, narrow, popcount32, widen
+from .tables import PACKED_MAX_LEN
 
 CODE_MASK = (1 << 26) - 1
+RANK_WORDS = MAX_SYMBOLS // 32  # presence mask words of the rank stage
+MAX_RANK_TABLE = 32768          # words of a rank gather's table in shared memory
 
 
 def gather_u16_pairs(packed_idx: torch.Tensor, sym_order: torch.Tensor) -> torch.Tensor:
@@ -80,7 +95,136 @@ def gather_codes(
 def gather_codes_plain(
     symbols: torch.Tensor, table: torch.Tensor, n_valid: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    packed = widen(table)[symbols.to(torch.int64) & 0xFFFF]
+    return _split(widen(table)[symbols.to(torch.int64) & 0xFFFF], symbols, n_valid)
+
+
+def build_rank_select(
+    values: torch.Tensor,   # (65536,) int32 bits of the u32 payload per symbol
+    present: torch.Tensor,  # (65536,) bool
+    cap: int,               # dense table entries; the alphabet must fit
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(maskwords (2048,) int32 bits, cums (2048,) int32 exclusive counts,
+    dense (cap,) int32 bits): the contract of ``build_rank_select`` for
+    alphabets of at most ``cap`` symbols (the caller picks the tier from
+    the alphabet size, so the JAX package's overflow flag is not needed)."""
+    p = present.reshape(RANK_WORDS, 32).to(torch.int64)
+    bit = torch.arange(32, device=present.device)
+    maskwords = narrow((p << bit).sum(dim=1))
+    counts = p.sum(dim=1)
+    cums = (torch.cumsum(counts, dim=0) - counts).to(torch.int32)
+    pres = present.to(torch.int64)
+    rank = torch.cumsum(pres, dim=0) - pres
+    dense = torch.zeros(cap, dtype=torch.int64, device=present.device)
+    dense.scatter_add_(0, rank.clamp(max=cap - 1), torch.where(present, widen(values), 0))
+    return maskwords, cums, narrow(dense)
+
+
+def _check_rank_tables(symbols, maskwords, cums, table):
+    dev = symbols.device
+    kernels.check(symbols, torch.int16, dev, "symbols")
+    kernels.check(maskwords, torch.int32, dev, "maskwords")
+    kernels.check(cums, torch.int32, dev, "cums")
+    kernels.check(table, torch.int32, dev, "table")
+    if maskwords.shape != (RANK_WORDS,) or cums.shape != (RANK_WORDS,):
+        raise ValueError(f"maskwords and cums must be ({RANK_WORDS},)")
+    if table.dim() != 1 or not 1 <= table.numel() <= MAX_RANK_TABLE:
+        raise ValueError(f"the rank table must be (1..{MAX_RANK_TABLE},)")
+    return dev
+
+
+def _select_rank(s, maskwords, cums):
+    w = s >> 5
+    below = (1 << (s & 31)) - 1
+    return cums.to(torch.int64)[w] + popcount32(widen(maskwords)[w] & below)
+
+
+def _split(packed, symbols, n_valid):
     pos = torch.arange(symbols.numel(), device=symbols.device).reshape(symbols.shape)
     packed = torch.where(pos < n_valid, packed, 0)
     return (packed & CODE_MASK).to(torch.int32), (packed >> 26).to(torch.int32)
+
+
+def gather_rank_select(
+    symbols: torch.Tensor,    # int16 bits of u16 symbols, any shape
+    n_valid: int,             # positions (row-major) at or past this are padding
+    maskwords: torch.Tensor,  # (2048,) int32 bits
+    cums: torch.Tensor,       # (2048,) int32
+    dense: torch.Tensor,      # (cap,) int32 bits of len << 26 | code
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (codes int32, lens int32) in ``symbols``' shape. Valid only
+    for symbols present in the build (the codebook comes from the data's
+    own histogram, so others cannot occur before ``n_valid``)."""
+    dev = _check_rank_tables(symbols, maskwords, cums, dense)
+    if dev.type == "cuda":
+        codes = torch.empty(symbols.shape, dtype=torch.int32, device=dev)
+        lens = torch.empty(symbols.shape, dtype=torch.int32, device=dev)
+        kernels.launch(
+            "gather_rank_select", symbols.data_ptr(), symbols.numel(), n_valid,
+            maskwords.data_ptr(), cums.data_ptr(), dense.data_ptr(),
+            dense.numel(), codes.data_ptr(), lens.data_ptr(),
+        )
+        return codes, lens
+    if dev.type == "cpu":
+        return gather_rank_select_plain(symbols, n_valid, maskwords, cums, dense)
+    raise ValueError(f"gather_rank_select: unsupported device {dev}")
+
+
+def gather_rank_select_plain(symbols, n_valid, maskwords, cums, dense):
+    s = symbols.to(torch.int64) & 0xFFFF
+    rank = _select_rank(s, maskwords, cums).clamp(0, dense.numel() - 1)
+    return _split(widen(dense)[rank], symbols, n_valid)
+
+
+def gather_rank_canonical(
+    symbols: torch.Tensor,    # int16 bits of u16 symbols, any shape
+    n_valid: int,
+    maskwords: torch.Tensor,  # (2048,) int32 bits (unread when identity_rank)
+    cums: torch.Tensor,       # (2048,) int32 (unread when identity_rank)
+    canon16: torch.Tensor,    # (cap / 2,) int32 bits of packed-16 canonical ranks
+    start: torch.Tensor,      # (33,) int32: #codes with length < l
+    base: torch.Tensor,       # (33,) int32 bits of the decode base table
+    max_len: int,
+    identity_rank: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (codes int32, lens int32) in ``symbols``' shape.
+    ``identity_rank``: canon16 packs the canonical rank of every one of the
+    65,536 symbols, addressed by the symbol itself."""
+    dev = _check_rank_tables(symbols, maskwords, cums, canon16)
+    kernels.check(start, torch.int32, dev, "start")
+    kernels.check(base, torch.int32, dev, "base")
+    if start.shape != (MAX_CODE_LEN + 1,) or base.shape != (MAX_CODE_LEN + 1,):
+        raise ValueError(f"start and base must be ({MAX_CODE_LEN + 1},)")
+    if not 1 <= max_len <= PACKED_MAX_LEN:
+        raise ValueError(f"max_len={max_len} outside [1, {PACKED_MAX_LEN}]")
+    if identity_rank and canon16.numel() != MAX_SYMBOLS // 2:
+        raise ValueError("identity_rank needs the full 65,536-symbol table")
+    if dev.type == "cuda":
+        codes = torch.empty(symbols.shape, dtype=torch.int32, device=dev)
+        lens = torch.empty(symbols.shape, dtype=torch.int32, device=dev)
+        kernels.launch(
+            "gather_rank_canonical", symbols.data_ptr(), symbols.numel(),
+            n_valid, maskwords.data_ptr(), cums.data_ptr(), canon16.data_ptr(),
+            canon16.numel(), start.data_ptr(), base.data_ptr(), max_len,
+            int(identity_rank), codes.data_ptr(), lens.data_ptr(),
+        )
+        return codes, lens
+    if dev.type == "cpu":
+        return gather_rank_canonical_plain(
+            symbols, n_valid, maskwords, cums, canon16, start, base, max_len,
+            identity_rank,
+        )
+    raise ValueError(f"gather_rank_canonical: unsupported device {dev}")
+
+
+def gather_rank_canonical_plain(
+    symbols, n_valid, maskwords, cums, canon16, start, base, max_len, identity_rank
+):
+    s = symbols.to(torch.int64) & 0xFFFF
+    rank = s if identity_rank else _select_rank(s, maskwords, cums)
+    pair = widen(canon16)[(rank >> 1).clamp(0, canon16.numel() - 1)]
+    canon = (pair >> ((rank & 1) << 4)) & 0xFFFF
+    length = torch.ones_like(canon)
+    for l in range(2, max_len + 1):
+        length += canon >= start[l]
+    code = (canon - widen(base)[length]) & MASK32
+    return _split(((length << 26) | code) & MASK32, symbols, n_valid)

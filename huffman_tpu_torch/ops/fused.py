@@ -1,0 +1,127 @@
+"""The fused device encode: counterpart of huffman_tpu/ops/fused.py
+(``tiered_code_gather``, ``encode_device``, ``encode_device_bytes``).
+
+From the uploaded bytes to the interleaved streams with no host codebook:
+histogram (K6) -> package-merge lengths at the input's alphabet tier (K7)
+-> canonical tables (tensor ops) -> rank gather (K8 below
+``CANON_GATHER_MIN_CAP``, K9 at and above it, K9 with identity addressing
+at the full alphabet) -> lane pack (K4) and stream assembly. The host
+reads back the alphabet size (to pick the tier), the groups' largest word
+total (to size the stream buffer), the (65536,) lengths (for the header)
+and the trimmed streams.
+
+The JAX package selects the tier inside one program with ``lax.switch``;
+here the wrapper reads ``n_unique`` once and runs only that tier's kernels.
+Containers do not depend on the tier: package-merge lengths are the same
+for any cap >= n_unique, and every gather scheme gives the same codes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..constants import ALPHABET_TIERS, GROUP_LANES, MAX_CODE_LEN, MAX_SYMBOLS
+from ..u32 import narrow, widen
+from .cuda_encode import encode_streams
+from .cuda_gather import (
+    RANK_WORDS,
+    build_rank_select,
+    gather_rank_canonical,
+    gather_rank_select,
+)
+from .cuda_hist import histogram
+from .device_codebook import device_canonical_tables, device_code_lengths
+from .histogram import bytes_to_symbols_device
+from .tables import PACKED_MAX_LEN
+
+# Tiers with at least this cap gather through canonical ranks (K9), smaller
+# ones through the packed-code rank-select table (K8). The JAX package's
+# boundary, kept so that all three gather schemes run; not yet measured on
+# the H100.
+CANON_GATHER_MIN_CAP = 16384
+
+
+def tier_for(n_unique: int) -> int:
+    """The smallest alphabet cap of ``ALPHABET_TIERS`` that holds
+    ``n_unique`` symbols."""
+    return next(t for t in ALPHABET_TIERS if t >= n_unique)
+
+
+def tiered_code_gather(
+    hist: torch.Tensor,     # (65536,) int32 histogram of the valid symbols
+    n_unique: int,          # its non-zero bins
+    symbols: torch.Tensor,  # (n_lanes, B) int16 bits of u16 symbols
+    n_valid: int,
+    *,
+    max_len: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """Codebook and symbol gather at the input's tier. Returns (lengths
+    (65536,) int32, codes, lens, tier cap); codes and lens are 0 at
+    positions at or past ``n_valid``."""
+    cap = tier_for(n_unique)
+    lengths = device_code_lengths(hist, max_len, cap, n_unique)
+    tabs = device_canonical_tables(lengths)
+    present = lengths > 0
+    if cap < CANON_GATHER_MIN_CAP:
+        enc_packed = narrow((widen(tabs.enc_lens) << 26) | widen(tabs.enc_codes))
+        maskw, cums, dense = build_rank_select(enc_packed, present, cap)
+        codes, lens = gather_rank_select(symbols, n_valid, maskw, cums, dense)
+        return lengths, codes, lens, cap
+    identity = cap >= MAX_SYMBOLS
+    if identity:
+        # Every symbol slot has an entry: the table is sym_rank itself,
+        # addressed by the symbol, and the rank stage is skipped.
+        ranks = tabs.sym_rank.to(torch.int64)
+        maskw = torch.zeros(RANK_WORDS, dtype=torch.int32, device=hist.device)
+        cums = torch.zeros_like(maskw)
+    else:
+        maskw, cums, dense = build_rank_select(tabs.sym_rank, present, cap)
+        ranks = widen(dense)
+    canon16 = narrow(ranks[0::2] | (ranks[1::2] << 16))
+    codes, lens = gather_rank_canonical(
+        symbols, n_valid, maskw, cums, canon16, tabs.start, tabs.base,
+        max_len, identity,
+    )
+    return lengths, codes, lens, cap
+
+
+def encode_device(
+    symbols: torch.Tensor,  # (n_lanes, B) int16 bits, n_lanes % 1024 == 0
+    n_pairs: int,           # real symbols (row-major); the rest is padding
+    max_len: int,
+) -> dict:
+    """Fused encode. Returns a dict with the interleaved payload
+    (``streams`` (ngroups, 2048 + words_cap) int32 bits and ``counts``
+    (ngroups,) words per group), the dense code ``lengths`` (65536,) int32,
+    the histogram ``hist`` and the alphabet ``tier`` that ran."""
+    n_lanes, B = symbols.shape
+    if n_lanes % GROUP_LANES:
+        raise ValueError("n_lanes must be a multiple of GROUP_LANES")
+    if not 1 <= max_len <= PACKED_MAX_LEN:
+        raise ValueError(f"max_len={max_len} outside [1, {PACKED_MAX_LEN}]")
+    hist = histogram(symbols, n_pairs)
+    n_unique = int((hist > 0).sum())  # the one read that picks the tier
+    if n_unique > (1 << max_len):
+        raise ValueError(
+            f"max_len={max_len} cannot encode {n_unique} distinct symbols"
+        )
+    lengths, codes, lens, cap = tiered_code_gather(
+        hist, n_unique, symbols, n_pairs, max_len=max_len
+    )
+    min_len = torch.where(lengths > 0, lengths, MAX_CODE_LEN).min()
+    n_real = -(-n_pairs // B)
+    streams, counts = encode_streams(codes, lens, n_pairs, min_len, n_real)
+    return {"streams": streams, "counts": counts, "lengths": lengths,
+            "hist": hist, "tier": cap}
+
+
+def encode_device_bytes(
+    data_bytes: torch.Tensor,  # (n_lanes * B * 2,) uint8, zero-padded
+    n_pairs: int,
+    B: int,
+    max_len: int,
+) -> dict:
+    """Container front end of ``encode_device``: the raw bytes go up, and
+    the byte-pair symbols are a view of them on the device."""
+    symbols = bytes_to_symbols_device(data_bytes).reshape(-1, B)
+    return encode_device(symbols, n_pairs, max_len)

@@ -1,7 +1,7 @@
 """Device-resident codebook tables (counterpart of huffman_tpu/ops/tables.py).
 
-The host ``huffman_tpu.codebook.Codebook`` is shared with the JAX package;
-this module turns its numpy fields into the tensors the kernels read. u32
+This module turns the numpy fields of the port's host ``Codebook``
+(``huffman_tpu_torch.codebook``) into the tensors the kernels read. u32
 values travel as int32 bit patterns; ``base`` is wrapped mod 2**32, which
 keeps rank arithmetic exact.
 """
@@ -13,9 +13,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from huffman_tpu.codebook import Codebook
-from huffman_tpu.constants import MAX_CODE_LEN, MAX_SYMBOLS
-
+from ..codebook import Codebook
+from ..constants import MAX_CODE_LEN, MAX_SYMBOLS
 from ..u32 import from_numpy_u32
 
 # Codes of up to this many bits share a word with their 6-bit length in

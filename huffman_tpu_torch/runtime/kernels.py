@@ -2,10 +2,11 @@
 
 Counterpart of ``huffman_tpu/runtime/native.py`` for the device side: the
 sources in ``huffman_tpu_torch/csrc/*.cu`` compile with ``nvcc`` for
-``sm_90a`` into ONE shared library with a plain C interface, loaded with
-``ctypes``. The build runs at first use into ``build/huffman_tpu_torch/``
-beside the package; the library's file name carries a hash of the sources
-and flags, so a stale build is never loaded.
+``sm_90a`` (one ``nvcc`` per source, all started together) and link into
+ONE shared library with a plain C interface, loaded with ``ctypes``. The
+build runs at first use into ``build/huffman_tpu_torch/`` beside the
+package; the library's file name carries a hash of the sources and flags,
+so a stale build is never loaded.
 
 Each C entry point launches one kernel on the stream it is given (PyTorch's
 current stream) and returns ``cudaGetLastError()``; ``launch`` raises if
@@ -29,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "huffman_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P = ctypes.c_void_p
@@ -45,6 +46,18 @@ KERNELS = {
     "gather_u16_pairs": ("htpu_gather_u16_pairs", [_P, _I64, _P, _I, _P]),
     "gather_codes": ("htpu_gather_codes", [_P, _I64, _I64, _P, _P, _P]),
     "pack_lanes": ("htpu_pack_lanes", [_P, _P, _I64, _I, _P]),
+    "histogram": ("htpu_histogram", [_P, _I64, _P]),
+    "package_merge": (
+        "htpu_package_merge",
+        [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    ),
+    "gather_rank_select": (
+        "htpu_gather_rank_select", [_P, _I64, _I64, _P, _P, _P, _I, _P, _P],
+    ),
+    "gather_rank_canonical": (
+        "htpu_gather_rank_canonical",
+        [_P, _I64, _I64, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P],
+    ),
 }
 
 _lock = threading.Lock()
@@ -85,17 +98,36 @@ def build() -> tuple[Path, str]:
     lib = library_path()
     if lib.exists():
         return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {r.returncode}): {' '.join(cmd)}\n{r.stderr}"
-        )
-    os.replace(tmp, lib)  # atomic: concurrent builders never see a partial file
-    return lib, r.stdout + r.stderr
+    nvcc = _nvcc()
+    work = BUILD_DIR / f"{lib.stem}.{os.getpid()}.tmp"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = work / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+            )))
+            objs.append(str(obj))
+        results = [(cmd, p, *p.communicate()) for cmd, p in procs]  # wait for all
+        for cmd, p, _, err in results:
+            if p.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed (exit {p.returncode}): {' '.join(cmd)}\n{err}"
+                )
+        log = [out + err for _, _, out, err in results]
+        tmp = work / "lib.so"
+        cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed (exit {r.returncode}): {' '.join(cmd)}\n{r.stderr}"
+            )
+        os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return lib, "".join(log)
 
 
 def load() -> ctypes.CDLL:

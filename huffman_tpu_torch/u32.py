@@ -32,6 +32,15 @@ def shl(x: torch.Tensor, s) -> torch.Tensor:
     return (x << s) & MASK32
 
 
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of int64 u32 values (the SWAR count; PyTorch has no
+    popcount)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & MASK32) >> 24
+
+
 def from_numpy_u32(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """numpy u32 values -> int32 bit-pattern tensor on ``device``."""
     arr = np.ascontiguousarray(np.asarray(a, dtype=np.uint32)).view(np.int32)

@@ -62,7 +62,9 @@ def test_caller_codebook_and_odd_block_symbols():
     cb = Codebook.from_frequencies(
         np.bincount(np.frombuffer(data, "<u2"), minlength=MAX_SYMBOLS)
     )
-    ours = huffman_tpu_torch.compress(data, "cpu", block_symbols=33, codebook=cb)
+    # The JAX codebook carries over to the port as its lengths.
+    port_cb = huffman_tpu_torch.Codebook.from_lengths(np.asarray(cb.lengths))
+    ours = huffman_tpu_torch.compress(data, "cpu", block_symbols=33, codebook=port_cb)
     assert ours == huffman_tpu.compress(data, backend="numpy", block_symbols=33, codebook=cb)
     assert huffman_tpu_torch.decompress(ours, "cpu") == data
 

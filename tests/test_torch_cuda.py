@@ -1,6 +1,6 @@
 """The port's CUDA kernels on a card: each kernel against its plain PyTorch
-version on the same CUDA tensors, and the slice against the JAX package's
-host path. Exact equality throughout.
+version on the same CUDA tensors, and both compress routes against the JAX
+package's host path. Exact equality throughout.
 
 These tests need an NVIDIA card (Hopper: the kernels build for sm_90a)
 and skip without one. tests/conftest.py imports JAX, which a machine set
@@ -20,7 +20,15 @@ from huffman_tpu.codebook import Codebook, package_merge_lengths
 from huffman_tpu.constants import GROUP_LANES, MAX_SYMBOLS
 from huffman_tpu.container import interleave as il
 from huffman_tpu.utils.benchmark import silesia_like, zipf_pairs
-from huffman_tpu_torch.ops import cuda_decode, cuda_encode, cuda_gather
+from huffman_tpu_torch.container import block_format as bf
+from huffman_tpu_torch.ops import (
+    cuda_decode,
+    cuda_encode,
+    cuda_gather,
+    cuda_hist,
+    device_codebook,
+    fused,
+)
 from huffman_tpu_torch.ops.tables import tables_from_codebook
 from huffman_tpu_torch.runtime import kernels
 
@@ -133,13 +141,106 @@ def test_slice_matches_host_path(dev, name):
     assert huffman_tpu_torch.decompress(blob, dev) == data
     if len(blob) < len(data) and len(data) > 2:
         counts = kernels.launch_counts()
-        assert counts["gather_codes"] and counts["pack_lanes"] and counts["decode_groups"]
+        fused_route = len(data) // 2 >= bf.DEVICE_MIN_PAIRS
+        gathers = ("gather_rank_select", "gather_rank_canonical") if fused_route else ("gather_codes",)
+        assert any(counts[k] for k in gathers)
+        assert counts["pack_lanes"] and counts["decode_groups"]
+        assert bool(counts["histogram"]) == fused_route
 
 
 def test_slice_at_benchmark_size(dev):
-    """32 MiB, the size of the repo's benchmark corpora."""
-    for data in (silesia_like(32 << 20, seed=7).tobytes(),
-                 zipf_pairs(32 << 20, 30000, np.random.default_rng(3)).tobytes()):
+    """32 MiB, the size of the repo's benchmark corpora: the fused route,
+    one input per gather scheme (rank-select, canonical rank, identity)."""
+    for data, tier in ((silesia_like(32 << 20, seed=7).tobytes(), 4096),
+                       (zipf_pairs(32 << 20, 30000, np.random.default_rng(3)).tobytes(), 32768),
+                       (zipf_pairs(32 << 20, 65536, np.random.default_rng(11)).tobytes(), 65536)):
+        kernels.reset_launch_counts()
         blob = huffman_tpu_torch.compress(data, dev)
+        counts = kernels.launch_counts()
+        assert counts["histogram"] == 1 and counts["package_merge"] == 1
+        assert counts["gather_rank_select" if tier < 16384 else "gather_rank_canonical"] == 1
         assert blob == huffman_tpu.compress(data, backend="numpy")
         assert huffman_tpu_torch.decompress(blob, dev) == data
+
+
+def _symbols(n_unique, n, seed, skew=0.0):
+    """(n,) u16 symbols holding exactly n_unique distinct values."""
+    rng = np.random.default_rng(seed)
+    alpha = rng.choice(MAX_SYMBOLS, n_unique, replace=False)
+    p = 1.0 / np.arange(1, n_unique + 1) ** skew
+    body = rng.choice(alpha, n - n_unique, p=p / p.sum())
+    return np.concatenate([alpha, body]).astype(np.uint16)
+
+
+def _padded(sym, B=64):
+    """(n_lanes, B) int16 symbols zero-padded to whole groups of lanes."""
+    nblocks = -(-sym.size // B)
+    n_lanes = -(-nblocks // GROUP_LANES) * GROUP_LANES
+    out = np.zeros(n_lanes * B, np.uint16)
+    out[: sym.size] = sym
+    return torch.from_numpy(out.view(np.int16)).reshape(n_lanes, B)
+
+
+@pytest.mark.parametrize("n,n_unique,skew", [(1, 1, 0.0), (1000, 7, 0.0), (65535, 4096, 1.1),
+                                             (3 * 65536 + 7, 65536, 0.0), (1 << 22, 1, 0.0),
+                                             ((1 << 24) + 5, 4000, 1.1)])
+def test_histogram_kernel_matches_plain(dev, n, n_unique, skew):
+    sym = _symbols(n_unique, n, n, skew)
+    t = _padded(sym).to(dev)
+    got = cuda_hist.histogram(t, n)
+    want = cuda_hist.histogram_plain(t, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), torch.from_numpy(np.bincount(sym, minlength=MAX_SYMBOLS).astype(np.int32)))
+
+
+@pytest.mark.parametrize("n_unique", [0, 1, 2, 4096, 4097, 16384, 32769, 65536])
+@pytest.mark.parametrize("max_len", [16, 26])
+def test_package_merge_kernel_matches_plain(dev, n_unique, max_len):
+    rng = np.random.default_rng(n_unique + max_len)
+    freqs = np.zeros(MAX_SYMBOLS, np.int32)
+    freqs[rng.choice(MAX_SYMBOLS, n_unique, replace=False)] = rng.integers(1, 1 << 12, n_unique)  # sum < 2**30
+    if 40 <= n_unique:  # a Fibonacci head: the length limit binds
+        fib = [1, 1]
+        while len(fib) < 30:
+            fib.append(fib[-1] + fib[-2])
+        freqs[np.flatnonzero(freqs)[:30]] = fib
+    f = torch.from_numpy(freqs).to(dev)
+    K = fused.tier_for(max(n_unique, 1))
+    got = device_codebook.package_merge(f, n_unique, max_len, K)
+    want = device_codebook.package_merge_plain(f, n_unique, max_len, K)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    lengths = device_codebook.device_code_lengths(f, max_len, K, n_unique)
+    np.testing.assert_array_equal(lengths.cpu().numpy(), package_merge_lengths(freqs, max_len))
+
+
+@pytest.mark.parametrize("n_unique", [1, 4096, 4097, 16384, 32769, 65536])
+@pytest.mark.parametrize("max_len", [16, 26])
+def test_rank_gather_kernels_match_plain(dev, n_unique, max_len, monkeypatch):
+    """tiered_code_gather on the card against the CPU's plain versions, and
+    each rank-gather kernel against its plain version on the card's
+    tensors; n_valid is not a multiple of the kernels' block."""
+    sym = _symbols(n_unique, 3 * 65536 + 11, n_unique, 0.7)
+    t = _padded(sym)
+    n_valid = sym.size - 5
+    hist = cuda_hist.histogram_plain(t, n_valid)
+    nu = int((hist > 0).sum())
+    calls = {}
+    for k in ("gather_rank_select", "gather_rank_canonical"):
+        def record(*a, _k=k, _fn=getattr(fused, k)):
+            calls[_k] = a
+            return _fn(*a)
+
+        monkeypatch.setattr(fused, k, record)
+    got = fused.tiered_code_gather(hist.to(dev), nu, t.to(dev), n_valid, max_len=max_len)
+    monkeypatch.undo()
+    want = fused.tiered_code_gather(hist, nu, t, n_valid, max_len=max_len)
+    assert got[3] == want[3] == fused.tier_for(nu)
+    for i in range(3):
+        assert torch.equal(got[i].cpu(), want[i])
+    (name, args), = calls.items()
+    plain = getattr(cuda_gather, name + "_plain")
+    kern = getattr(cuda_gather, name)
+    assert all(torch.equal(a, b) for a, b in zip(kern(*args), plain(*args)))
+    torch.cuda.synchronize()

@@ -1,0 +1,198 @@
+"""The port's fused device encode against the JAX package: the histogram
+(K6), rank-select (K8) and canonical-rank (K9) plain versions against the
+Pallas kernels in interpret mode, the fused encode against
+``encode_device_bytes``, and fused-route containers against the host
+route and ``huffman_tpu.compress(backend="numpy")``, one input per
+alphabet tier. Exact equality throughout."""
+
+import numpy as np
+import pytest
+import torch
+
+jnp = pytest.importorskip("jax.numpy")
+
+import huffman_tpu
+import huffman_tpu_torch
+from huffman_tpu.container import block_format as jbf
+from huffman_tpu.ops import pallas_gather as jpg
+from huffman_tpu.ops.fused import encode_device_bytes as jax_encode_device_bytes
+from huffman_tpu.ops.pallas_hist import histogram_pallas
+from huffman_tpu_torch.codebook import Codebook, package_merge_lengths
+from huffman_tpu_torch.container import block_format as bf
+from huffman_tpu_torch.corpus import zipf_pairs
+from huffman_tpu_torch.ops import fused
+from huffman_tpu_torch.ops.cuda_gather import (
+    build_rank_select,
+    gather_rank_canonical,
+    gather_rank_select,
+)
+from huffman_tpu_torch.ops.cuda_hist import histogram
+from huffman_tpu_torch.ops.device_codebook import device_canonical_tables
+
+CPU = torch.device("cpu")
+
+
+def _u16(a):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint16).view(np.int16))
+
+
+def _i32(a):
+    return torch.from_numpy(np.ascontiguousarray(a).astype(np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("n,n_valid", [(4096, 4096), (4095, 4095), (4096, 3001), (1, 1), (4096, 0)])
+def test_histogram_matches_pallas(n, n_valid):
+    rng = np.random.default_rng(n + n_valid)
+    sym = np.concatenate([rng.integers(0, 65536, n // 2), rng.integers(0, 40, n - n // 2)])
+    want = np.asarray(histogram_pallas(
+        jnp.asarray(sym[:n_valid].astype(np.int32)), interpret=True, cell=4096
+    ))
+    got = histogram(_u16(sym), n_valid)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _codebook(n_unique, max_len=18, seed=0):
+    rng = np.random.default_rng(seed)
+    freqs = np.zeros(65536, np.int64)
+    freqs[rng.choice(65536, n_unique, replace=False)] = rng.integers(1, 500, n_unique)
+    cb = Codebook.from_lengths(package_merge_lengths(freqs, max_len))
+    return cb, rng.choice(cb.sym_order, 2048).astype(np.uint16)
+
+
+@pytest.mark.parametrize("n_unique,cap", [(1, 4096), (3000, 4096), (4096, 4096)])
+def test_rank_select_matches_pallas(n_unique, cap):
+    cb, sym = _codebook(n_unique, seed=n_unique)
+    packed = (cb.lengths.astype(np.uint32) << 26) | cb.codes
+    present = cb.lengths > 0
+    jm, jc, jd, ok = jpg.build_rank_select(jnp.asarray(packed), jnp.asarray(present), cap=cap)
+    m, c, d = build_rank_select(_i32(packed), torch.from_numpy(present), cap)
+    for got, want in ((m, jm), (c, jc), (d, jd)):
+        np.testing.assert_array_equal(got.numpy().view(np.asarray(want).dtype), np.asarray(want))
+    want = np.asarray(jpg.gather_rank_select(
+        jnp.asarray(sym.astype(np.int32)), jm, jc, jd, interpret=True, per_cell=1
+    ))
+    n_valid = 2000
+    codes, lens = gather_rank_select(_u16(sym), n_valid, m, c, d)
+    valid = np.arange(sym.size) < n_valid
+    np.testing.assert_array_equal(codes.numpy().view(np.uint32), np.where(valid, want & ((1 << 26) - 1), 0))
+    np.testing.assert_array_equal(lens.numpy(), np.where(valid, want >> 26, 0))
+    np.testing.assert_array_equal(lens.numpy()[:n_valid], cb.lengths[sym[:n_valid]])
+
+
+@pytest.mark.parametrize("n_unique,cap,max_len", [(9000, 16384, 18), (16384, 16384, 26),
+                                                  (20000, 32768, 18), (40000, 65536, 18),
+                                                  (65536, 65536, 16)])
+def test_rank_canonical_matches_pallas(n_unique, cap, max_len):
+    cb, sym = _codebook(n_unique, max_len, seed=n_unique)
+    t = device_canonical_tables(torch.from_numpy(cb.lengths.astype(np.int32)))
+    present = torch.from_numpy(cb.lengths > 0)
+    identity = cap == 65536
+    if identity:
+        ranks = t.sym_rank.to(torch.int64)
+        m = c = torch.zeros(2048, dtype=torch.int32)
+    else:
+        m, c, d = build_rank_select(t.sym_rank, present, cap)
+        ranks = d.to(torch.int64) & 0xFFFFFFFF
+    canon16 = (ranks[0::2] | (ranks[1::2] << 16)).numpy().astype(np.uint32)
+    want = np.asarray(jpg.gather_rank_canonical(
+        jnp.asarray(sym.astype(np.int32)), jnp.asarray(m.numpy().view(np.uint32)),
+        jnp.asarray(c.numpy()), jnp.asarray(canon16), jnp.asarray(t.start.numpy()),
+        jnp.asarray(t.base.numpy().view(np.uint32)), max_len=max_len,
+        interpret=True, identity_rank=identity, per_cell=1,
+    ))
+    codes, lens = gather_rank_canonical(
+        _u16(sym), sym.size, m, c, _i32(canon16), t.start, t.base, max_len, identity
+    )
+    np.testing.assert_array_equal(codes.numpy().view(np.uint32), want & ((1 << 26) - 1))
+    np.testing.assert_array_equal(lens.numpy(), want >> 26)
+    np.testing.assert_array_equal(codes.numpy().view(np.uint32), cb.codes[sym])
+    np.testing.assert_array_equal(lens.numpy(), cb.lengths[sym])
+
+
+@pytest.mark.parametrize("nalpha", [100, 256, 257, 1024])
+def test_fused_encode_matches_jax_encode_device_bytes(nalpha):
+    """Streams, counts and lengths of the whole fused encode. The JAX side
+    runs a small explicit ladder (256, then a 1024 cap) and the port its
+    4096 tier: package-merge lengths, and so the streams, do not depend on
+    the cap."""
+    B, n_pairs = 4, 4000
+    rng = np.random.default_rng(nalpha)
+    alpha = rng.choice(65536, nalpha, replace=False)
+    sym = np.concatenate([alpha, rng.choice(alpha, n_pairs - nalpha)]).astype("<u2")
+    padded = np.zeros(1024 * B * 2, np.uint8)
+    padded[: 2 * n_pairs] = sym.view(np.uint8)
+    r = jax_encode_device_bytes(
+        jnp.asarray(padded), jnp.int32(n_pairs), B, max_len=18, interpret=True,
+        gather="displacement", tiers=(256,), alphabet_cap=1024,
+    )
+    assert bool(r["ok"])
+    ours = fused.encode_device_bytes(torch.from_numpy(padded), n_pairs, B, 18)
+    counts = np.asarray(r["counts"])
+    np.testing.assert_array_equal(ours["counts"].numpy(), counts)
+    np.testing.assert_array_equal(ours["lengths"].numpy(), np.asarray(r["lengths"]))
+    np.testing.assert_array_equal(ours["hist"].numpy(), np.asarray(r["hist"]))
+    want_s = np.asarray(r["streams"])
+    got_s = ours["streams"].numpy().view(np.uint32)
+    for g, n in enumerate(counts):
+        np.testing.assert_array_equal(got_s[g, :n], want_s[g, :n])
+
+
+def _tier_input(n_unique, seed):
+    """Compressible input whose alphabet lands in the tier of n_unique:
+    every symbol once, then a skewed draw."""
+    rng = np.random.default_rng(seed)
+    alpha = rng.choice(65536, n_unique, replace=False).astype(np.uint16)
+    p = 1.0 / np.arange(1, n_unique + 1) ** 1.3
+    body = rng.choice(alpha, 120_000, p=p / p.sum())
+    return np.concatenate([alpha, body]).astype("<u2").tobytes() + b"\x07"
+
+
+@pytest.mark.parametrize("n_unique,tier", [(1000, 4096), (10000, 16384),
+                                           (20000, 32768), (40000, 65536)])
+def test_fused_container_matches_host_routes(n_unique, tier, monkeypatch):
+    data = _tier_input(n_unique, n_unique)
+    B, n_pairs = 64, len(data) // 2
+    nblocks = -(-n_pairs // B)
+    out, cb = bf._compress_v2_fused(data, n_pairs, True, data[-1], B, nblocks, 18, CPU)
+    assert cb.n_unique == n_unique and fused.tier_for(n_unique) == tier
+    symbols = np.frombuffer(data[: 2 * n_pairs], "<u2")
+    want, _ = jbf._compress_host_codebook(
+        data, symbols, True, data[-1], None, B, nblocks, "numpy", "interleaved", True, 18
+    )
+    assert out == want
+    host, _ = bf._compress_host_codebook(data, True, data[-1], None, B, nblocks, 18, CPU)
+    assert out == host
+
+    # Through the public entry point, with the fused route's size threshold
+    # lowered to this input.
+    monkeypatch.setattr(bf, "DEVICE_MIN_PAIRS", n_pairs)
+    blob = huffman_tpu_torch.compress(data, "cpu", block_symbols=B)
+    assert blob == huffman_tpu.compress(data, backend="numpy", block_symbols=B)
+    assert huffman_tpu_torch.decompress(blob, "cpu") == data
+    assert huffman_tpu.decompress(blob) == data
+
+
+def test_route_selection(monkeypatch):
+    calls = []
+    real = bf._compress_v2_fused
+    monkeypatch.setattr(bf, "_compress_v2_fused", lambda *a, **k: calls.append(1) or real(*a, **k))
+    data = zipf_pairs(40_000, 300, np.random.default_rng(2)).tobytes()
+    huffman_tpu_torch.compress(data, "cpu")
+    assert not calls  # below DEVICE_MIN_PAIRS: host route
+    monkeypatch.setattr(bf, "DEVICE_MIN_PAIRS", 1000)
+    for kwargs in ({"max_code_len": 15}, {"max_code_len": 27}, {"max_code_len": None},
+                   {"codebook": Codebook.from_frequencies(np.bincount(
+                       np.frombuffer(data, "<u2"), minlength=65536))}):
+        blob = huffman_tpu_torch.compress(data, "cpu", **kwargs)
+        assert huffman_tpu_torch.decompress(blob, "cpu") == data
+    assert not calls  # the host route for each of those
+    blob = huffman_tpu_torch.compress(data, "cpu", max_code_len=16)
+    assert calls == [1]
+    assert blob == huffman_tpu.compress(data, backend="numpy", max_code_len=16)
+
+
+def test_fused_encode_rejects_an_infeasible_limit():
+    sym = torch.arange(1024 * 4, dtype=torch.int32).to(torch.int16).reshape(1024, 4)
+    with pytest.raises(ValueError, match="cannot encode"):
+        fused.encode_device(sym, 4096, max_len=10)

@@ -1,6 +1,7 @@
-"""Package-level properties of the PyTorch port: it runs without JAX,
-refuses a CUDA device it does not have, builds from hashed sources, and
-counts only real kernel launches."""
+"""Package-level properties of the PyTorch port: it stands alone (no JAX,
+nothing of huffman_tpu), refuses a CUDA device it does not have, runs on
+the card by default, builds from hashed sources, and counts only real
+kernel launches."""
 
 import re
 import subprocess
@@ -20,12 +21,21 @@ PKG = REPO / "huffman_tpu_torch"
 
 
 def test_port_runs_without_jax():
+    """A roundtrip on each compress route loads neither JAX nor any module
+    of the JAX package."""
     code = (
         "import sys, numpy as np\n"
         "import huffman_tpu_torch as ht\n"
+        "from huffman_tpu_torch.container import block_format as bf\n"
         "d = np.random.default_rng(0).integers(0, 40, 30001, dtype=np.uint8).tobytes()\n"
         "assert ht.decompress(ht.compress(d, 'cpu', block_symbols=64), 'cpu') == d\n"
-        "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')))\n"
+        "bf.DEVICE_MIN_PAIRS = 1000\n"
+        "fused = []\n"
+        "real = bf._compress_v2_fused\n"
+        "bf._compress_v2_fused = lambda *a: fused.append(1) or real(*a)\n"
+        "assert ht.decompress(ht.compress(d, 'cpu', block_symbols=64), 'cpu') == d\n"
+        "assert fused == [1]\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'huffman_tpu')))\n"
     )
     r = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
@@ -39,6 +49,45 @@ def test_no_jax_import_in_the_package_source():
     pattern = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
     offenders = [p for p in PKG.rglob("*.py") if pattern.search(p.read_text())]
     assert offenders == []
+
+
+def test_nothing_of_huffman_tpu_is_imported():
+    """The port keeps its own copies of the host code it needs: no module
+    of it, and not chip_smoke.py, imports huffman_tpu (huffman_tpu_torch's
+    own absolute imports are fine)."""
+    pattern = re.compile(r"^\s*(import|from)\s+huffman_tpu(?!_torch)\b", re.M)
+    sources = [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]
+    offenders = [p for p in sources if pattern.search(p.read_text())]
+    assert offenders == []
+    assert pattern.search("from huffman_tpu.codebook import Codebook")
+    assert pattern.search("import huffman_tpu as ht")
+    assert not pattern.search("import huffman_tpu_torch as ht")
+
+
+def test_copied_corpora_match_the_jax_package():
+    bench = pytest.importorskip("huffman_tpu.utils.benchmark")
+    from huffman_tpu_torch import corpus
+
+    for n in (1, 4097, 100_001):
+        assert corpus.silesia_like(n, seed=3).tobytes() == bench.silesia_like(n, seed=3).tobytes()
+        for n_unique in (1, 300, 30000):
+            assert (
+                corpus.zipf_pairs(n, n_unique, np.random.default_rng(n_unique)).tobytes()
+                == bench.zipf_pairs(n, n_unique, np.random.default_rng(n_unique)).tobytes()
+            )
+    assert corpus.wide30k(5000).tobytes() == bench.zipf_pairs(
+        5000, 30000, np.random.default_rng(3)
+    ).tobytes()
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    with pytest.raises(RuntimeError, match="cuda"):
+        huffman_tpu_torch.compress(b"abcd" * 100)
+    blob = huffman_tpu_torch.compress(b"abcd" * 100, "cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        huffman_tpu_torch.decompress(blob)
 
 
 def test_cuda_request_raises_without_a_card():
@@ -81,6 +130,13 @@ def test_cpu_path_launches_no_kernel():
     blob = huffman_tpu_torch.compress(data, "cpu", block_symbols=64)
     assert huffman_tpu_torch.decompress(blob, "cpu") == data
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+
+
+def test_cpu_fused_route_launches_no_kernel(monkeypatch):
+    from huffman_tpu_torch.container import block_format as bf
+
+    monkeypatch.setattr(bf, "DEVICE_MIN_PAIRS", 1000)
+    test_cpu_path_launches_no_kernel()
 
 
 def test_every_kernel_symbol_has_a_source():
