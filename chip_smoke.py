@@ -18,7 +18,12 @@ Phases, each printing one line or a few:
        - the host-codebook compress route, silesia-like with a given
          codebook (the dense code gather);
        - decompress of silesia-like (rank-mode decode, rank -> symbol
-         pairs) and of an 8 MiB 300-symbol input (translate-mode decode).
+         pairs) and of an 8 MiB 300-symbol input (translate-mode decode);
+       - the in-kernel deposit (K10) on the lane-pack and stream-assembly
+         arguments of the silesia-like and full-alphabet compresses, with
+         the tensor-op ``pack_streams`` timed on the same inputs;
+       - the unpacked rank-mode decode's rank -> symbol lookup (K5) on the
+         wide30k and full-alphabet decodes.
      Times from CUDA events, with each kernel's bound (the larger of its
      bytes over 3.35 TB/s and its integer operations over 16.7 Tops/s) and,
      where one PyTorch call computes the same function, that call's time.
@@ -26,14 +31,21 @@ Phases, each printing one line or a few:
      shape under ``variants``;
   3. the paths, each with the launch counts set to 0 just before it and
      read just after: the fused route (compress + decompress of the three
-     32 MiB inputs and the 8 MiB one) and the host-codebook route (32 MiB
-     silesia-like with a given codebook, and small edge inputs). Every
+     32 MiB inputs and the 8 MiB one), the host-codebook route (32 MiB
+     silesia-like with a given codebook, and small edge inputs), the v1
+     route (32 MiB silesia-like in per-block slabs), the wide-code route
+     (the 29-bit Fibonacci input in v2 and v1, and the fused encode at a
+     32-bit limit), the reference route (the ``.compressed`` format at 32
+     MiB, and its host decode of a 1 MiB prefix) and the ops route (the
+     in-kernel deposit against ``pack_streams``, the unpacked decode
+     against the packed one, the on-device roundtrip at 32 MiB). Every
      container must equal the one the port's CPU path (the plain versions,
      held equal to the JAX package by the CPU tests) writes, and every
      decompress must return the input. Each path's kernels must all have
      launched in its run.
 
-The second-to-last line is the kernels' JSON record; the last line is
+The line before the card's JSON lines gives the smoke's wall seconds; the
+second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 before that line. Without a CUDA card it exits non-zero and prints no
 result.
@@ -61,7 +73,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "decode_groups": ("huffman_tpu_torch/csrc/decode.cu", "huffman_tpu/ops/pallas_decode.py:242"),
     "gather_u16_pairs": ("huffman_tpu_torch/csrc/gather.cu", "huffman_tpu/ops/pallas_gather.py:592"),
     "gather_codes": ("huffman_tpu_torch/csrc/gather.cu", "huffman_tpu/ops/pallas_gather.py:138"),
+    "gather_u16": ("huffman_tpu_torch/csrc/gather.cu", "huffman_tpu/ops/pallas_gather.py:538"),
     "pack_lanes": ("huffman_tpu_torch/csrc/pack.cu", "huffman_tpu/ops/pallas_encode.py:39"),
+    "deposit_streams": ("huffman_tpu_torch/csrc/deposit.cu", "huffman_tpu/ops/pallas_encode.py:409"),
     "histogram": ("huffman_tpu_torch/csrc/hist.cu", "huffman_tpu/ops/pallas_hist.py:48"),
     "package_merge": ("huffman_tpu_torch/csrc/package_merge.cu", "huffman_tpu/ops/device_codebook.py:62"),
     "gather_rank_select": ("huffman_tpu_torch/csrc/rank_gather.cu", "huffman_tpu/ops/pallas_gather.py:270"),
@@ -70,6 +84,11 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 FUSED_PATH = ("histogram", "package_merge", "gather_rank_select", "gather_rank_canonical",
               "pack_lanes", "decode_groups", "gather_u16_pairs")
 HOST_PATH = ("gather_codes", "pack_lanes", "decode_groups", "gather_u16_pairs")
+V1_PATH = ("gather_codes", "pack_lanes")
+WIDE_PATH = ("pack_lanes", "histogram", "package_merge", "decode_groups")
+REFERENCE_PATH = ("gather_codes",)
+OPS_PATH = ("deposit_streams", "gather_u16", "pack_lanes", "decode_groups", "gather_u16_pairs",
+            "histogram", "package_merge", "gather_rank_select")
 
 
 def card_line() -> str:
@@ -146,6 +165,12 @@ def work(name: str, args, out) -> tuple[int, int]:
         return nbytes(*tensors, *outs), 12 * args[0].numel()
     if name == "gather_u16_pairs":
         return nbytes(*tensors, *outs), 6 * args[0].numel()
+    if name == "gather_u16":
+        return nbytes(*tensors, *outs), 3 * args[0].numel()
+    if name == "deposit_streams":
+        # per lane and step: the fire bit, the warp ballot and popcount, a
+        # 5-round shuffle scan of the warp totals, the slot and the carries
+        return nbytes(*tensors, *outs), 25 * args[0].shape[0] * (args[0].shape[1] - 1)
     if name == "decode_groups":
         streams, n_real, tables, n_steps, translate = args
         ops = 40 * streams.shape[0] * 1024 * n_steps
@@ -175,6 +200,10 @@ def library_call(name: str, args):
         u = packed.to(torch.int64) & 0xFFFFFFFF
         idx = torch.stack([u & 0xFFFF, u >> 16]).clamp(max=table.numel() - 1)
         return lambda: table[idx]
+    if name == "gather_u16":
+        ranks, table = args
+        idx = ranks.to(torch.int64).clamp(0, table.numel() - 1)
+        return lambda: table[idx]
     return None
 
 
@@ -188,12 +217,14 @@ def slowest(variants: list[dict]) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     import huffman_tpu_torch as ht
+    from huffman_tpu_torch.codebook import package_merge_lengths
     from huffman_tpu_torch.container import block_format as bf
-    from huffman_tpu_torch.corpus import silesia_like, wide30k, zipf_pairs
+    from huffman_tpu_torch.corpus import fibonacci_pairs, silesia_like, wide30k, zipf_pairs
     from huffman_tpu_torch.ops import (
         cuda_decode,
         cuda_encode,
@@ -221,6 +252,7 @@ def main() -> int:
     wide = wide30k(BIG).tobytes()
     full = zipf_pairs(BIG, 65536, np.random.default_rng(11)).tobytes()
     small = zipf_pairs(TRANSLATE_BYTES, 300, np.random.default_rng(5)).tobytes()
+    fib = fibonacci_pairs().tobytes()
     n_full = int(np.unique(np.frombuffer(full, "<u2")).size)
     print(f"full-alphabet input: {n_full} distinct symbols")
     if n_full <= 32768:
@@ -229,21 +261,32 @@ def main() -> int:
     # Phase 2: kernel vs plain at the main paths' shapes.
     fused_calls = [(fused, "histogram"), (device_codebook, "package_merge"),
                    (fused, "gather_rank_select"), (fused, "gather_rank_canonical"),
-                   (cuda_encode, "pack_lanes")]
+                   (cuda_encode, "pack_lanes"), (cuda_encode, "pack_streams")]
     blob, enc = capture(fused_calls, ht.compress, silesia, dev)
-    _, enc_wide = capture(fused_calls, ht.compress, wide, dev)
-    _, enc_full = capture(fused_calls, ht.compress, full, dev)
+    blob_wide, enc_wide = capture(fused_calls, ht.compress, wide, dev)
+    blob_full, enc_full = capture(fused_calls, ht.compress, full, dev)
     codebook = bf.ParsedContainer(blob).codebook
-    _, enc_host = capture([(bf, "gather_codes")], ht.compress, silesia, dev, codebook=codebook)
+    _, enc_host = capture([(cuda_gather, "gather_codes")], ht.compress, silesia, dev, codebook=codebook)
     _, dec = capture([(bf, "decode_groups"), (bf, "gather_u16_pairs")], ht.decompress, blob, dev)
     _, dec_tr = capture([(bf, "decode_groups")], ht.decompress, ht.compress(small, dev), dev)
+    _, dec_wide = capture([(bf, "decode_groups")], ht.decompress, blob_wide, dev)
+    _, dec_full = capture([(bf, "decode_groups")], ht.decompress, blob_full, dev)
     assert not dec["decode_groups"][4] and dec_tr["decode_groups"][4], "decode modes"
     assert not enc_wide["gather_rank_canonical"][-1] and enc_full["gather_rank_canonical"][-1], \
         "canonical gather modes"
     K = [a["package_merge"][3] for a in (enc, enc_wide, enc_full)]
     assert K == [4096, 32768, 65536], f"tiers {K}"
+    # K10's and K5's inputs, as the deposit path and the unpacked decode
+    # hand them to their kernels.
+    deposit = {name: capture([(cuda_encode, "deposit_streams")], cuda_encode.pack_streams_kernel_deposit,
+                             *e["pack_streams"])[1]["deposit_streams"]
+               for name, e in (("silesia", enc), ("full", enc_full))}
+    unpacked = {name: capture([(cuda_decode, "gather_u16")], cuda_decode.decode_groups,
+                              *d["decode_groups"], False)[1]["gather_u16"]
+                for name, d in (("wide30k", dec_wide), ("full", dec_full))}
 
     cg, ce, cd, ch, dc = cuda_gather, cuda_encode, cuda_decode, cuda_hist, device_codebook
+
     checks = [  # (record name, variant, kernel, plain, args, iters, plain iters)
         ("histogram", "silesia", ch.histogram, ch.histogram_plain, enc["histogram"], 20, 3),
         ("histogram", "full", ch.histogram, ch.histogram_plain, enc_full["histogram"], 20, 3),
@@ -263,7 +306,12 @@ def main() -> int:
          dec["gather_u16_pairs"], 20, 3),
         ("decode_groups", "translate mode", cd.decode_groups, cd.decode_groups_plain,
          dec_tr["decode_groups"], 5, 2),
+        ("deposit_streams", "silesia", ce.deposit_streams, ce.deposit_streams_plain, deposit["silesia"], 10, 1),
+        ("deposit_streams", "full", ce.deposit_streams, ce.deposit_streams_plain, deposit["full"], 10, 1),
+        ("gather_u16", "wide30k", cg.gather_u16, cg.gather_u16_plain, unpacked["wide30k"], 20, 3),
+        ("gather_u16", "full", cg.gather_u16, cg.gather_u16_plain, unpacked["full"], 20, 3),
     ]
+    pack_args = {"silesia": enc["pack_streams"], "full": enc_full["pack_streams"]}
     records = {}
     for name, variant, kernel, plain, args, iters, plain_iters in checks:
         got, want = kernel(*args), plain(*args)
@@ -276,6 +324,8 @@ def main() -> int:
         bound_ms, bound_by = bound(name, args, got)
         shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
         lib_txt = f" library {library_ms:.4f} ms" if lib_fn else ""
+        rec = {"variant": variant, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
         if name == "package_merge":
             # Its time is set by a chain of dependent launches, which the
             # byte and operation bound does not see.
@@ -283,15 +333,21 @@ def main() -> int:
             tile = min(n_sym, 2048)
             chain = 3 + (n_sym // tile).bit_length() - 1 + max_len - 1
             lib_txt += f" dependent launches {chain}"
+        if name == "deposit_streams":
+            # The tensor-op assembly the compress routes use, and the whole
+            # deposit path, on the same inputs: data for a later reroute.
+            pa = pack_args[variant]
+            rec["pack_streams_ms"] = cuda_ms(lambda: ce.pack_streams(*pa), iters)
+            rec["deposit_path_ms"] = cuda_ms(lambda: ce.pack_streams_kernel_deposit(*pa), iters)
+            lib_txt += (f" pack_streams {rec['pack_streams_ms']:.4f} ms"
+                        f" pack_streams_kernel_deposit {rec['deposit_path_ms']:.4f} ms")
         print(f"kernel {name} [{variant}]: shapes {shapes} max_abs_err {err} kernel "
               f"{ms:.4f} ms plain {plain_ms:.4f} ms{lib_txt} bound {bound_ms:.4f} ms "
               f"({bound_by}) ({card})")
         if err != 0:
             raise AssertionError(f"{name} [{variant}]: kernel differs from its plain version")
-        rec = {"variant": variant, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
         records.setdefault(name, []).append(rec)
-    del enc, enc_wide, enc_full, enc_host, dec, dec_tr, checks
+    del enc_host, dec, dec_tr, checks, deposit, unpacked
 
     # Phase 3: the paths, counting launches.
     def drive(name, data, **kwargs):
@@ -317,9 +373,14 @@ def main() -> int:
               f"{rate} ({card})")
         return blob
 
-    def run_path(label, path_kernels, inputs):
+    def run_path(label, path_kernels, inputs, extra=None):
+        """Drive ``inputs`` (and ``extra``) with the launch counts set to 0
+        just before and read just after; every container must equal the
+        port's CPU path's."""
         kernels.reset_launch_counts()
         blobs = {name: drive(name, data, **kw) for name, (data, kw) in inputs.items()}
+        if extra:
+            extra()
         counts = kernels.launch_counts()
         print(f"path {label}: launches {json.dumps({k: counts[k] for k in path_kernels})}")
         missing = [k for k in path_kernels if counts[k] == 0]
@@ -330,23 +391,109 @@ def main() -> int:
                 raise AssertionError(f"{name}: card container differs from the CPU path's")
         return counts
 
-    fused_counts = run_path("fused route", FUSED_PATH, {
+    path_counts = [run_path("fused route", FUSED_PATH, {
         "silesia_like_32MiB": (silesia, {}),
         "wide30k_32MiB": (wide, {}),
         "full_alphabet_32MiB": (full, {}),
         "zipf300_8MiB": (small, {}),
-    })
-    host_counts = run_path("host-codebook route", HOST_PATH, {
+    })]
+    path_counts.append(run_path("host-codebook route", HOST_PATH, {
         "silesia_like_32MiB_given_codebook": (silesia, {"codebook": codebook}),
         "odd_length": (small[: (1 << 20) + 1], {}),
         "one_byte": (b"\x01", {}),
         "empty": (b"", {}),
         "random_bytes": (np.random.default_rng(1).integers(0, 256, 1 << 20, dtype=np.uint8).tobytes(), {}),
-    })
+    }))
+    path_counts.append(run_path("v1 route", V1_PATH, {
+        "silesia_like_32MiB_blocks": (silesia, {"mode": "blocks"}),
+    }))
 
+    def fused_at_32_bits():
+        B = 512
+        n_pairs = len(fib) // 2
+        n_lanes = -(-n_pairs // (B * 1024)) * 1024
+        raw = torch.zeros(n_lanes * B * 2, dtype=torch.uint8)
+        raw[: len(fib)] = torch.frombuffer(bytearray(fib), dtype=torch.uint8)
+        r = fused.encode_device_bytes(raw.to(dev), n_pairs, B, 32)
+        want = package_merge_lengths(np.bincount(np.frombuffer(fib, "<u2"), minlength=65536), 32)
+        if not np.array_equal(r["lengths"].cpu().numpy(), want):
+            raise AssertionError("fused encode at max_len 32: lengths differ from package-merge")
+        print(f"fused encode at max_len 32: fibonacci lengths up to {int(want.max())} bits "
+              f"equal the host package-merge")
+
+    path_counts.append(run_path("wide-code route", WIDE_PATH, {
+        "fibonacci_29bit_v2": (fib, {"max_code_len": None}),
+        "fibonacci_29bit_v1": (fib, {"max_code_len": None, "mode": "blocks"}),
+    }, extra=fused_at_32_bits))
+
+    def reference_route():
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = ht.compress_reference(silesia)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        if ref != ht.compress_reference(silesia, "cpu"):
+            raise AssertionError("reference container differs from the CPU path's")
+        prefix = silesia[: 1 << 20]
+        ref_prefix = ht.compress_reference(prefix)
+        t0 = time.perf_counter()
+        out = ht.decompress_reference(ref_prefix)
+        t_dec = time.perf_counter() - t0
+        if out != prefix:
+            raise AssertionError("decompress_reference(compress_reference(x)) != x")
+        c = statistics.median(times)
+        print(f"slice reference_silesia_like_32MiB: {len(silesia)} B -> {len(ref)} B (ratio "
+              f"{len(ref) / len(silesia):.4f}); compress median of 3: {len(silesia) / c / 1e9:.3f} GB/s; "
+              f"host decompress_reference of a {len(prefix)} B prefix: {t_dec:.2f} s, "
+              f"{len(prefix) / t_dec / 1e6:.3f} MB/s ({card})")
+
+    path_counts.append(run_path("reference route", REFERENCE_PATH, {}, extra=reference_route))
+
+    def ops_route():
+        for name, args in pack_args.items():
+            want_s, want_c = cuda_encode.pack_streams(*args)
+            got_s, got_c = cuda_encode.pack_streams_kernel_deposit(*args)
+            if not torch.equal(got_c, want_c):
+                raise AssertionError(f"deposit path [{name}]: counts differ from pack_streams'")
+            w = want_s.shape[1]
+            slot = torch.arange(got_s.shape[1], device=dev)[None, :]
+            inside = slot < want_c[:, None]
+            if not (torch.equal(got_s[:, :w][inside[:, :w]], want_s[inside[:, :w]])
+                    and not got_s[~inside].any()):
+                raise AssertionError(f"deposit path [{name}]: streams differ from pack_streams'")
+            print(f"ops deposit [{name}]: pack_streams_kernel_deposit equals pack_streams over "
+                  f"{int(want_c.sum())} words in {want_c.numel()} groups, zero after")
+        for name, blob_x in (("wide30k", blob_wide), ("full", blob_full)):
+            _, d = capture([(bf, "decode_groups")], ht.decompress, blob_x, dev)
+            args = d["decode_groups"]
+            tables = args[2]
+            got = cuda_decode.decode_groups(*args, False)
+            packed = cuda_gather.gather_u16_pairs(cuda_decode.decode_groups(*args), tables.sym_order)
+            want = torch.stack([packed & 0xFFFF, (packed >> 16) & 0xFFFF], dim=2).reshape(got.shape)
+            if not torch.equal(got, want):
+                raise AssertionError(f"unpacked decode [{name}] differs from the packed path")
+            print(f"ops unpacked decode [{name}]: {tuple(got.shape)} equals the packed path")
+        B = 512
+        n_pairs = len(silesia) // 2
+        sym = torch.frombuffer(bytearray(silesia), dtype=torch.int16).to(dev).reshape(-1, B)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok, words = fused.roundtrip_device(sym, n_pairs, 18)
+        ok = bool(ok)
+        t_rt = time.perf_counter() - t0
+        if not ok:
+            raise AssertionError("roundtrip_device at 32 MiB failed")
+        print(f"ops roundtrip_device silesia_like_32MiB: ok, {int(words)} payload words, "
+              f"{t_rt:.3f} s ({card})")
+
+    path_counts.append(run_path("ops route", OPS_PATH, {}, extra=ops_route))
+
+    print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": fused_counts[name] + host_counts[name], **slowest(records[name])}
+         "launches": sum(c[name] for c in path_counts), **slowest(records[name])}
         for name, (src, tpu) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

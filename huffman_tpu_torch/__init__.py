@@ -1,7 +1,8 @@
 """huffman_tpu_torch: the PyTorch/CUDA port of huffman_tpu.
 
-It compresses to and decompresses from the native HTPU v2 container,
-byte-identical to the JAX package, with the device work in CUDA kernels
+It compresses to and decompresses from the native HTPU container (v2
+interleaved groups and v1 block slabs) and the reference ``.compressed``
+format, byte-identical to the JAX package, with the device work in CUDA kernels
 written for Hopper (``csrc/``, built with ``nvcc`` at first use). The host
 code it needs from ``huffman_tpu`` (codebook, container header and parser,
 interleave protocol helpers, corpora) is copied into this package under
@@ -9,13 +10,21 @@ the same module names: it imports nothing of ``huffman_tpu`` and never
 imports JAX.
 
 Public API:
-    compress(data, device="cuda", ...) / decompress(blob, device="cuda")
+    compress(data, device="cuda", ...) / decompress(blob, device="cuda", ...)
+    compress_reference(data, device="cuda") / decompress_reference(blob)
     Codebook
     resolve_device(device)
 """
 
-from .api import compress, decompress
+from .api import compress, compress_reference, decompress, decompress_reference
 from .codebook import Codebook
 from .device import resolve_device
 
-__all__ = ["Codebook", "compress", "decompress", "resolve_device"]
+__all__ = [
+    "Codebook",
+    "compress",
+    "compress_reference",
+    "decompress",
+    "decompress_reference",
+    "resolve_device",
+]

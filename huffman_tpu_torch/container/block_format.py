@@ -1,22 +1,28 @@
-"""HTPU v2 container: counterpart of huffman_tpu/container/block_format.py.
+"""HTPU container: counterpart of huffman_tpu/container/block_format.py,
+for version 2 (interleaved groups) and version 1 (per-block slabs).
 
 The host side is the port's own copy of the JAX package's: the header
 (``_build_header``, ``_codebook_to_header``, ``_codebook_from_header``),
-the payload tail (``_emit_streams``), the parser (``ParsedContainer``, v2
-and stored containers) and the host codebook (``_host_codebook``). The
-device side is what ran on the TPU, in two compress routes chosen as the
-JAX package chooses them on a device:
+the payload tails (``_emit_streams``, ``_compress_v1``'s bit table and
+big-endian words), the parser (``ParsedContainer``, with ``slab()`` for
+v1) and the host codebook (``_host_codebook``). A header may leave the
+codebook out (``embed_codebook=False``, flags bit 1); decompress then
+takes it as ``codebook=``. The device side is what ran on the TPU, in two
+compress routes chosen as the JAX package chooses them on a device:
 
-* the fused route (``_compress_v2_fused``), for inputs of at least
+* the fused route (``_compress_v2_fused``), for v2 inputs of at least
   ``DEVICE_MIN_PAIRS`` symbols with no given codebook and a length limit
   in 16..26: histogram, package-merge codebook, rank gather and lane pack
   all on the device (``ops/fused.py``);
 * the host-codebook route otherwise: the codebook is built on the host (or
-  given), and the device gathers codes (K3) and packs lanes (K4).
+  given), and the device gathers codes (K3, or the two-table gather of
+  ``ops/encode.py`` for codes deeper than 26 bits) and packs lanes (K4),
+  into interleaved streams (v2) or per-block slabs (v1, ``pack_blocks``).
 
-Decompress runs the group decode (K1), rank -> symbol pairs (K2) for
+Decompress of v2 runs the group decode (K1), rank -> symbol pairs (K2) for
 alphabets past the in-kernel tier, and the block-major reorder of
-``_postpack_v2``.
+``_postpack_v2``; v1 runs ``ops/decode.py``'s ``decode_blocks`` on the
+slabs.
 
 Both routes write containers byte-identical to ``huffman_tpu.compress(data,
 backend="numpy")``: the fused route's package-merge lengths equal the
@@ -40,8 +46,9 @@ from ..constants import (
     NATIVE_MAGIC,
 )
 from ..ops.cuda_decode import TRANSLATE_MAX_ALPHABET, decode_groups
-from ..ops.cuda_encode import encode_streams
-from ..ops.cuda_gather import gather_codes, gather_u16_pairs
+from ..ops.cuda_encode import bucket_words, encode_streams, pack_blocks
+from ..ops.cuda_gather import gather_table_codes, gather_u16_pairs
+from ..ops.decode import decode_blocks
 from ..ops.fused import encode_device_bytes
 from ..ops.histogram import bytes_to_symbols_device
 from ..ops.tables import PACKED_MAX_LEN, tables_from_codebook
@@ -81,11 +88,14 @@ def _codebook_from_header(blob: bytes, n_unique: int) -> tuple[Codebook, int]:
     return Codebook.from_lengths(lengths), off
 
 
-def _build_header(version, data, is_odd, last_byte, cb, B, nblocks) -> bytearray:
+def _build_header(
+    version, data, is_odd, last_byte, cb, B, nblocks, embed_codebook=True
+) -> bytearray:
     header = bytearray(_HEADER_BYTES)
     header[0:4] = int(NATIVE_MAGIC).to_bytes(4, "little")
     header[4] = version
-    header[5] = 1 if is_odd else 0  # flags: bit0 odd input
+    # flags: bit0 odd input, bit1 codebook stored outside the container
+    header[5] = (1 if is_odd else 0) | (0 if embed_codebook else 2)
     header[6] = last_byte
     header[7] = cb.max_len
     header[8:16] = len(data).to_bytes(8, "little")
@@ -136,17 +146,25 @@ def compress(
     block_symbols: int = DEFAULT_BLOCK_SYMBOLS,
     max_code_len: int | None = DEFAULT_MAX_CODE_LEN,
     codebook: Codebook | None = None,
+    mode: str = "interleaved",
+    embed_codebook: bool = True,
 ) -> bytes:
-    """HTPU v2 container of ``data``, payload encoded on ``device``, by the
-    route the JAX package's ``compress`` takes on a device. ``codebook`` is
-    the port's ``Codebook`` (a JAX one carries over as
+    """HTPU container of ``data`` (v2 for ``mode="interleaved"``, v1 for
+    ``"blocks"``), payload encoded on ``device``, by the route the JAX
+    package's ``compress`` takes on a device. ``codebook`` is the port's
+    ``Codebook`` (a JAX one carries over as
     ``Codebook.from_lengths(jax_codebook.lengths)``); giving one selects
-    the host-codebook route."""
+    the host-codebook route. ``embed_codebook=False`` (which needs a given
+    codebook) leaves it out of the header."""
     data = bytes(data)
     if len(data) > (1 << 32):
         raise ValueError("input exceeds 4 GiB, the bound of one HTPU container")
     if block_symbols < 1:
         raise ValueError("block_symbols must be positive")
+    if mode not in ("interleaved", "blocks"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if codebook is None and not embed_codebook:
+        raise ValueError("embed_codebook=False requires an explicit codebook")
     n_pairs = len(data) // 2
     is_odd = len(data) % 2 == 1
     last_byte = data[-1] if is_odd else 0
@@ -156,6 +174,7 @@ def compress(
     nblocks = (n_pairs + B - 1) // B
     if (
         codebook is None
+        and mode == "interleaved"
         and nblocks > 0
         and max_code_len is not None
         and 16 <= max_code_len <= PACKED_MAX_LEN  # >= 16: any alphabet fits
@@ -166,7 +185,8 @@ def compress(
         )
     else:
         out, codebook = _compress_host_codebook(
-            data, is_odd, last_byte, codebook, B, nblocks, max_code_len, device
+            data, is_odd, last_byte, codebook, B, nblocks, max_code_len, device,
+            mode, embed_codebook,
         )
     if len(out) >= _HEADER_BYTES + len(data):
         # Incompressible input: stored mode (flags bit2), header + raw bytes.
@@ -177,28 +197,47 @@ def compress(
 
 
 def _compress_host_codebook(data, is_odd, last_byte, codebook, B, nblocks,
-                            max_code_len, device):
+                            max_code_len, device, mode, embed_codebook):
     """The container with a host-built (or given) codebook; the payload is
     encoded on ``device``. Returns (container bytes, codebook)."""
     if codebook is None:
         symbols, _, _ = bytes_to_symbols(data)
         codebook = _host_codebook(histogram_host(symbols), max_code_len)
-    out = _build_header(2, data, is_odd, last_byte, codebook, B, nblocks)
-    out += _codebook_to_header(codebook)
+    version = 2 if mode == "interleaved" else 1
+    out = _build_header(
+        version, data, is_odd, last_byte, codebook, B, nblocks, embed_codebook
+    )
+    if embed_codebook:
+        out += _codebook_to_header(codebook)
     if nblocks == 0:
-        out += (0).to_bytes(4, "little")  # ngroups
+        if version == 2:
+            out += (0).to_bytes(4, "little")  # ngroups
         return bytes(out), codebook
-    if codebook.max_len > PACKED_MAX_LEN:
-        raise NotImplementedError(
-            f"codebooks deeper than {PACKED_MAX_LEN} bits (ROADMAP.md, "
-            "Queue 1: v1 / reference-format device paths and wide codes)"
-        )
     tables = tables_from_codebook(codebook, device)
     n_pairs = len(data) // 2
     sym = bytes_to_symbols_device(_upload_bytes(data, n_pairs, nblocks, B, device))
-    codes, lens = gather_codes(sym.reshape(-1, B), tables.enc_packed, n_pairs)
+    codes, lens = gather_table_codes(sym.reshape(-1, B), tables, n_pairs)
+    if version == 1:
+        return _emit_slabs(out, codes[:nblocks], lens[:nblocks]), codebook
     streams, counts = encode_streams(codes, lens, n_pairs, tables.min_len, nblocks)
     return _emit_streams(out, _streams_to_host(streams, counts), nblocks), codebook
+
+
+def _emit_slabs(out: bytearray, codes: torch.Tensor, lens: torch.Tensor) -> bytes:
+    """Append the v1 payload tail: the per-block bit counts, then each
+    block's words (its bits rounded up to whole words) as big-endian u32.
+    The slab width is the bucketed word count of the largest block, read
+    to the host with the bit counts; only the blocks' own words cross the
+    link."""
+    block_bits = lens.sum(dim=1, dtype=torch.int64)
+    bits_host = block_bits.cpu().numpy()
+    W = bucket_words(int((bits_host.max(initial=1) + 31) // 32))
+    slab = pack_blocks(codes, lens, W)
+    n_words = (block_bits + 31) // 32
+    keep = torch.arange(W, device=slab.device)[None, :] < n_words[:, None]
+    out += bits_host.astype("<u4").tobytes()
+    out += to_numpy_u32(slab[keep]).astype(">u4").tobytes()
+    return bytes(out)
 
 
 def _compress_v2_fused(data, n_pairs, is_odd, last_byte, B, nblocks,
@@ -239,10 +278,11 @@ def _streams_to_host(streams: torch.Tensor, counts: torch.Tensor) -> list[np.nda
 
 class ParsedContainer:
     """Parsed HTPU header and payload (host side): v2 payloads split into
-    per-group streams, stored payloads as they are; v1 payloads are not
-    parsed (the port does not decode them)."""
+    per-group streams, v1 payloads as the per-block bit table and the
+    packed words (``slab()`` re-slabs them), stored payloads as they are.
+    ``codebook`` is used when the header stores none (flags bit 1)."""
 
-    def __init__(self, blob: bytes):
+    def __init__(self, blob: bytes, codebook: Codebook | None = None):
         if len(blob) < _HEADER_BYTES or int.from_bytes(blob[0:4], "little") != NATIVE_MAGIC:
             raise ValueError("not an HTPU container")
         self.version = blob[4]
@@ -273,13 +313,25 @@ class ParsedContainer:
         if self.n_unique > MAX_SYMBOLS:
             raise ValueError("corrupt container: bad unique count")
         if self.external_codebook:
-            raise NotImplementedError(
-                "HTPU shards with an external codebook (HTPX archives): "
-                "ROADMAP.md, Queue 1, front-ends and HTPS/HTPX"
-            )
-        self.codebook, off = _codebook_from_header(blob, self.n_unique)
+            if codebook is None:
+                raise ValueError(
+                    "container stores its codebook externally; pass codebook="
+                )
+            self.codebook, off = codebook, _HEADER_BYTES
+        else:
+            self.codebook, off = _codebook_from_header(blob, self.n_unique)
         if self.version == 1:
-            return  # block slabs: not decoded by the port
+            self.block_bits = np.frombuffer(
+                blob[off : off + 4 * self.num_blocks][: (len(blob) - off) & ~3],
+                dtype="<u4",
+            ).astype(np.int64)
+            off += 4 * self.num_blocks
+            if self.block_bits.size != self.num_blocks:
+                raise ValueError("truncated container: block bit table")
+            if self.num_blocks and self.block_bits.max() > 32 * self.block_symbols:
+                raise ValueError("corrupt container: block bits exceed block size")
+            self.payload = blob[off:]
+            return
         self.ngroups = int.from_bytes(blob[off : off + 4], "little")
         off += 4
         if self.ngroups != (self.num_blocks + GROUP_LANES - 1) // GROUP_LANES:
@@ -310,10 +362,31 @@ class ParsedContainer:
                 np.concatenate([w0, w1, s[2 * n_real :].astype(np.uint32)])
             )
 
+    def slab(self) -> np.ndarray:
+        """v1: the packed payload re-slabbed into (num_blocks, W) u32 rows,
+        W the bucketed word count of the largest block."""
+        word_counts = (self.block_bits + 31) // 32
+        W = bucket_words(int(word_counts.max(initial=1)))
+        words = np.frombuffer(
+            self.payload[: int(word_counts.sum()) * 4], dtype=">u4"
+        ).astype(np.uint32)
+        starts = np.cumsum(word_counts) - word_counts
+        rows = np.repeat(np.arange(self.num_blocks, dtype=np.int64), word_counts)
+        within = np.arange(words.size, dtype=np.int64) - np.repeat(starts, word_counts)
+        slab = np.zeros((self.num_blocks, W), dtype=np.uint32)
+        slab.reshape(-1)[rows * W + within] = words
+        return slab
 
-def decompress(blob: bytes, device: torch.device) -> bytes:
-    """Original bytes of an HTPU container, payload decoded on ``device``."""
-    c = ParsedContainer(blob)
+
+def decompress(
+    blob: bytes,
+    device: torch.device,
+    verify_crc: bool = True,
+    codebook: Codebook | None = None,
+) -> bytes:
+    """Original bytes of an HTPU container, payload decoded on ``device``.
+    ``codebook`` is needed, and used, only when the header stores none."""
+    c = ParsedContainer(blob, codebook=codebook)
     if c.stored:
         data = bytes(c.payload[: c.original_size])
         if len(data) != c.original_size:
@@ -322,16 +395,26 @@ def decompress(blob: bytes, device: torch.device) -> bytes:
         n_pairs = (c.original_size - (1 if c.is_odd else 0)) // 2
         symbols = np.zeros(0, np.uint16)
         if n_pairs:
-            if c.version != 2:
-                raise NotImplementedError(
-                    "HTPU v1 (block slab) containers: ROADMAP.md, Queue 1, "
-                    "v1 / reference-format device paths"
-                )
-            symbols = _decode_v2(c, device)[:n_pairs]
+            decode = _decode_v1 if c.version == 1 else _decode_v2
+            symbols = decode(c, device)[:n_pairs]
         data = symbols_to_bytes(symbols, c.is_odd, c.last_byte)
-    if (zlib.crc32(data) & 0xFFFFFFFF) != c.crc32:
+    if verify_crc and (zlib.crc32(data) & 0xFFFFFFFF) != c.crc32:
         raise ValueError("CRC mismatch: corrupt container or decode bug")
     return data
+
+
+def _decode_v1(c: ParsedContainer, device: torch.device) -> np.ndarray:
+    """Decoded symbols of a v1 container, block-major, as u16."""
+    if c.codebook.n_unique == 0:
+        raise ValueError("corrupt container: symbols but an empty codebook")
+    B = c.block_symbols
+    if B % 2:
+        raise ValueError("corrupt container: odd block_symbols")
+    tables = tables_from_codebook(c.codebook, device)
+    slab = from_numpy_u32(c.slab(), device)
+    out = decode_blocks(slab, tables.lj_limit, tables.base, tables.sym_order, B, tables.max_len)
+    pairs = out.reshape(-1, 2)
+    return to_numpy_u32(pairs[:, 0] | (pairs[:, 1] << 16)).view("<u2")
 
 
 def _decode_v2(c: ParsedContainer, device: torch.device) -> np.ndarray:

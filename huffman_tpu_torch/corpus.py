@@ -3,14 +3,16 @@
 ``zipf_pairs`` and ``silesia_like`` are the port's own copies of the JAX
 package's generators (huffman_tpu/utils/benchmark.py): the same seed gives
 the same bytes, so both packages measure the same inputs. ``wide30k`` is
-bench.py's 30,000-symbol corpus.
+bench.py's 30,000-symbol corpus. ``fibonacci_pairs`` is the input whose
+unlimited Huffman code is deepest for its size: codes past the 26 bits of
+the kernels' ``len << 26 | code`` word.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["silesia_like", "wide30k", "zipf_pairs"]
+__all__ = ["fibonacci_pairs", "silesia_like", "wide30k", "zipf_pairs"]
 
 
 def zipf_pairs(
@@ -52,3 +54,16 @@ def wide30k(n_bytes: int, seed: int = 3) -> np.ndarray:
     """Zipf byte pairs over 30,000 distinct symbols, as bench.py builds
     its wide-alphabet corpus."""
     return zipf_pairs(n_bytes, 30000, np.random.default_rng(seed))
+
+
+def fibonacci_pairs(n_symbols: int = 30, seed: int = 0) -> np.ndarray:
+    """Byte pairs of ``n_symbols`` distinct symbols, the k-th occurring
+    F(k) times (F(1) = F(2) = 1), shuffled from ``seed``: the unlimited
+    two-queue Huffman code gives them depths 1..n_symbols - 1. The default
+    30 symbols make 2,178,308 pairs (4.36 MB) and 29-bit codes."""
+    fib = [1, 1]
+    while len(fib) < n_symbols:
+        fib.append(fib[-1] + fib[-2])
+    symbols = np.repeat(np.arange(n_symbols, dtype=np.uint16) * 7 + 1000, fib[:n_symbols])
+    np.random.default_rng(seed).shuffle(symbols)
+    return symbols.astype("<u2").view(np.uint8)

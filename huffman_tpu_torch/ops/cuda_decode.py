@@ -13,6 +13,12 @@ hold symbols; otherwise they hold the canonical ranks' low 16 bits, which
 alphabet (only possible in corrupt streams) read the last symbol, as in
 the JAX package's numpy twin
 ``huffman_tpu.container.interleave.decode_interleaved_numpy``.
+
+``packed_out=False`` gives JAX's unpacked layout instead, ``(ngroups *
+n_steps, 8, 128)`` int32 with row ``g * n_steps + t`` holding step ``t``
+of group ``g``, one symbol per word; in rank mode the ranks go through
+``ops.cuda_gather.gather_u16`` (K5), as the JAX decoder translates them
+with ``sym_order_dev``.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 from ..constants import GROUP_LANES, PRELOAD_WORDS, REFILL_THRESHOLD
 from ..runtime import kernels
 from ..u32 import MASK32, narrow, shl, widen
+from .cuda_gather import gather_u16
 from .tables import Tables
 
 # Largest alphabet whose symbol table the decode kernel holds in shared
@@ -35,9 +42,12 @@ def decode_groups(
     tables: Tables,
     n_steps: int,
     translate: bool,
+    packed_out: bool = True,
 ) -> torch.Tensor:
     """Decode ``n_steps`` symbols in each of the 1024 lanes of every group.
-    ``n_steps`` must be even (two steps pack into one output word)."""
+    ``n_steps`` must be even (two steps pack into one output word).
+    ``packed_out=False`` unpacks the pairs and, in rank mode, translates
+    the ranks to symbols (see the module docstring)."""
     if n_steps % 2:
         raise ValueError("n_steps (block_symbols) must be even")
     if streams.dim() != 2 or n_real.shape != (streams.shape[0],):
@@ -64,10 +74,16 @@ def decode_groups(
             tables.sym_order.data_ptr(), n_sym, int(translate), n_steps,
             tables.min_len, tables.max_len, out.data_ptr(),
         )
+    elif dev.type == "cpu":
+        out = decode_groups_plain(streams, n_real, tables, n_steps, translate)
+    else:
+        raise ValueError(f"decode_groups: unsupported device {dev}")
+    if packed_out:
         return out
-    if dev.type == "cpu":
-        return decode_groups_plain(streams, n_real, tables, n_steps, translate)
-    raise ValueError(f"decode_groups: unsupported device {dev}")
+    # (g, h, 8, 128) pairs -> (g, h, 2, 8, 128): step 2h is the low half.
+    steps = torch.stack([out & 0xFFFF, (out >> 16) & 0xFFFF], dim=2)
+    steps = steps.reshape(ngroups * n_steps, 8, 128)
+    return steps if translate else gather_u16(steps, tables.sym_order)
 
 
 def decode_groups_plain(

@@ -1,13 +1,23 @@
-"""Lane packing (K4) and stream assembly: counterpart of
-huffman_tpu/ops/pallas_encode.py.
+"""Lane packing (K4), stream assembly and the in-kernel deposit (K10):
+counterpart of huffman_tpu/ops/pallas_encode.py.
 
-``pack_lanes`` is the kernel (``csrc/pack.cu`` for CUDA tensors,
+``pack_lanes`` is K4 (``csrc/pack.cu`` for CUDA tensors,
 ``pack_lanes_plain`` for CPU tensors): per lane, the word completed at each
-step and the final left-aligned partial word. ``pack_streams`` assembles
-the interleaved group streams from it with vectorised tensor ops, as
-``pack_streams_pallas`` does with XLA around its Pallas packer.
-``encode_streams`` is what both compress routes call: protocol lengths,
-a bucketed ``words_cap`` from the groups' word totals, and the pack.
+step and the final left-aligned partial word. Two stream assemblies build
+the interleaved group streams from it, as the JAX package has two:
+
+* ``pack_streams``, counterpart of ``pack_streams_pallas``: the reverse
+  lookahead and the deposit as vectorised tensor ops, where the JAX package
+  runs an XLA scan and a sorted scatter around its Pallas packer. Both
+  compress routes use it, through ``encode_streams`` (protocol lengths, a
+  bucketed ``words_cap`` from the groups' word totals, and the pack).
+* ``pack_streams_kernel_deposit``, counterpart of the function of that
+  name: the fire bits packed 32 steps to a word, then ``deposit_streams``
+  (K10, ``csrc/deposit.cu``; counterpart of ``deposit_streams_pallas``),
+  a backward walk that stores every word in its stream slot.
+
+``pack_blocks`` (counterpart of ``pack_blocks_pallas``) scatters the
+staging into per-block ``(nblocks, W)`` slabs: the v1 container's payload.
 
 Stream identity (docs/FORMATS.md §3): with one bit cumsum driving both
 encoder and decoder, the decoder consumes a lane's word j at the step the
@@ -74,6 +84,59 @@ def pack_lanes_plain(codes: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     return narrow(out)
 
 
+def pack_blocks(
+    codes: torch.Tensor,  # (nblocks, B) int32 bits of right-justified codes
+    lens: torch.Tensor,   # (nblocks, B) int32 lengths (0 = padding)
+    words_per_block: int,
+) -> torch.Tensor:
+    """(nblocks, words_per_block) int32 slab, each block's stream from bit
+    0 of its row: K4 on the real lengths, then word j of a lane, completed
+    at the step where its bit total reaches 32 (j + 1), and the final
+    partial word scattered into the lane's row. Indices clamp into the row
+    and the scatter adds in int64, as ``pack_blocks_pallas`` does in
+    uint32."""
+    nblocks, B = codes.shape
+    W = words_per_block
+    st = widen(pack_lanes(codes, lens))
+    cum = torch.cumsum(lens, dim=1, dtype=torch.int32).to(torch.int64)
+    r = cum >> 5
+    emit = torch.diff(r, dim=1, prepend=torch.zeros_like(r[:, :1])) > 0
+    row = torch.arange(nblocks, device=codes.device)[:, None] * W
+    slab = torch.zeros(nblocks * W, dtype=torch.int64, device=codes.device)
+    slab.index_add_(
+        0, (row + (r - 1).clamp(0, W - 1)).reshape(-1),
+        torch.where(emit, st[:, :B], 0).reshape(-1),
+    )
+    total = cum[:, -1:]
+    slab.index_add_(
+        0, (row + (total >> 5).clamp(0, W - 1)).reshape(-1),
+        torch.where((total & 31) > 0, st[:, B:], 0).reshape(-1),
+    )
+    return narrow(slab).reshape(nblocks, W)
+
+
+def step_major(a: torch.Tensor) -> torch.Tensor:
+    """(n_lanes, K) lane-major -> (ngroups, K * GROUP_LANES), in (step,
+    lane) order within each group."""
+    ngroups = a.shape[0] // GROUP_LANES
+    return a.reshape(ngroups, GROUP_LANES, -1).transpose(1, 2).reshape(ngroups, -1)
+
+
+def _fires(eff_lens: torch.Tensor, n_real: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(r, fire): words completed after each step (0 on pad lanes), and
+    whether a word completed at the step."""
+    lane = torch.arange(eff_lens.shape[0], device=eff_lens.device)
+    cum = torch.cumsum(eff_lens, dim=1, dtype=torch.int32)
+    r = torch.where((lane < n_real)[:, None], cum, 0) >> 5
+    fire = torch.diff(r, dim=1, prepend=torch.zeros_like(r[:, :1])) > 0
+    return r, fire
+
+
+def _check_cap(body_max: int, words_cap: int) -> None:
+    if body_max > words_cap:
+        raise ValueError(f"words_cap {words_cap} < a group's {body_max} body words")
+
+
 def pack_streams(
     codes: torch.Tensor,     # (n_lanes, B) int32 codewords (0 on garbage steps)
     eff_lens: torch.Tensor,  # (n_lanes, B) int32 protocol lengths (min_len
@@ -91,15 +154,7 @@ def pack_streams(
     ngroups = n_lanes // GROUP_LANES
     dev = codes.device
     st = pack_lanes(codes, eff_lens)
-
-    lane = torch.arange(n_lanes, device=dev)
-    cum = torch.where(
-        (lane < n_real)[:, None], torch.cumsum(eff_lens, dim=1, dtype=torch.int32), 0
-    )
-    r = cum >> 5  # words completed after each step
-    fire = torch.empty_like(r, dtype=torch.bool)
-    fire[:, 0] = r[:, 0] > 0
-    fire[:, 1:] = r[:, 1:] > r[:, :-1]
+    r, fire = _fires(eff_lens, n_real)
 
     # Words of each lane by index: word k at column k, the partial word at
     # column R, zeros after it; column B + 2 takes the non-fire writes.
@@ -109,20 +164,107 @@ def pack_streams(
     by_index.scatter_(1, r[:, -1:].long(), st[:, B:])
     later = by_index.gather(1, torch.where(fire, r + 1, spare).long())
 
-    def step_major(a: torch.Tensor) -> torch.Tensor:
-        return a.reshape(ngroups, GROUP_LANES, -1).transpose(1, 2).reshape(ngroups, -1)
-
     fire_g = step_major(fire)
     counts = fire_g.sum(dim=1)
-    body_max = int(counts.max()) if ngroups else 0
-    if body_max > words_cap:
-        raise ValueError(f"words_cap {words_cap} < a group's {body_max} body words")
+    _check_cap(int(counts.max()) if ngroups else 0, words_cap)
     g_idx, s_idx = fire_g.nonzero(as_tuple=True)  # row-major: slot order
     slot = torch.cumsum(fire_g, dim=1, dtype=torch.int32)[g_idx, s_idx] - 1
     body = torch.zeros((ngroups, words_cap), dtype=torch.int32, device=dev)
     body[g_idx, slot.long()] = step_major(later)[g_idx, s_idx]
     streams = torch.cat([step_major(by_index[:, :PRELOAD_WORDS]), body], dim=1)
     return streams, counts + PRELOAD_WORDS * GROUP_LANES
+
+
+def pack_streams_kernel_deposit(
+    codes: torch.Tensor,     # (n_lanes, B) int32 codewords (0 on garbage steps)
+    eff_lens: torch.Tensor,  # (n_lanes, B) int32 protocol lengths
+    n_real: int,             # real lanes; the rest are pads
+    words_cap: int,          # bound on every group's body words
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pack and interleave with the deposit in K10. Returns (streams
+    (ngroups, 2048 + cap') int32 bits, cap' = ``words_cap`` rounded up to a
+    multiple of 1024, and counts (ngroups,) int64 words per group, preload
+    included): the contract of the JAX ``pack_streams_kernel_deposit``.
+    Equal to ``pack_streams`` up to each group's count and zero after it.
+    Raises ``ValueError`` if a group's body exceeds ``words_cap``."""
+    n_lanes, B = codes.shape
+    if n_lanes % GROUP_LANES:
+        raise ValueError("n_lanes must be a multiple of GROUP_LANES")
+    st = pack_lanes(codes, eff_lens)
+    r, fire = _fires(eff_lens, n_real)
+    # Fire bits 32 steps to a word: bit t & 31 of word t >> 5.
+    mb = -(-B // 32)
+    padded = torch.nn.functional.pad(fire, (0, mb * 32 - B)).reshape(n_lanes, mb, 32)
+    bit = torch.arange(32, device=codes.device)
+    mask_bits = narrow((padded.to(torch.int64) << bit).sum(dim=2))
+    body_words = r[:, -1].reshape(-1, GROUP_LANES).sum(dim=1, dtype=torch.int32)
+    streams = deposit_streams(st, mask_bits, body_words, words_cap)
+    return streams, body_words.to(torch.int64) + PRELOAD_WORDS * GROUP_LANES
+
+
+def deposit_streams(
+    staging: torch.Tensor,     # (n_lanes, B + 1) int32: K4's staging
+    mask_bits: torch.Tensor,   # (n_lanes, ceil(B / 32)) int32 packed fire bits
+    body_words: torch.Tensor,  # (ngroups,) int32 body words per group
+    words_cap: int,            # bound on every group's body words
+) -> torch.Tensor:
+    """Interleaved streams (ngroups, 2048 + cap') int32 bits from the
+    staging and the fire bits, cap' = ``words_cap`` rounded up to a
+    multiple of 1024; every slot past a group's words is zero. The
+    contract of ``deposit_streams_pallas`` with lane-major inputs (the JAX
+    function takes them as (8, 128) tiles)."""
+    dev = staging.device
+    kernels.check(staging, torch.int32, dev, "staging")
+    kernels.check(mask_bits, torch.int32, dev, "mask_bits")
+    kernels.check(body_words, torch.int32, dev, "body_words")
+    n_lanes, B1 = staging.shape
+    ngroups = n_lanes // GROUP_LANES
+    if n_lanes % GROUP_LANES or mask_bits.shape != (n_lanes, -(-(B1 - 1) // 32)):
+        raise ValueError("staging must be (n_lanes, B + 1), mask_bits (n_lanes, ceil(B / 32))")
+    if body_words.shape != (ngroups,):
+        raise ValueError("body_words must be (ngroups,)")
+    _check_cap(int(body_words.max()) if ngroups else 0, words_cap)
+    if dev.type == "cuda":
+        cap = -(-words_cap // GROUP_LANES) * GROUP_LANES
+        out = torch.empty((ngroups, PRELOAD_WORDS * GROUP_LANES + cap), dtype=torch.int32, device=dev)
+        kernels.launch(
+            "deposit_streams", staging.data_ptr(), B1 - 1, mask_bits.data_ptr(),
+            mask_bits.shape[1], body_words.data_ptr(), ngroups, cap, out.data_ptr(),
+        )
+        return out
+    if dev.type == "cpu":
+        return deposit_streams_plain(staging, mask_bits, body_words, words_cap)
+    raise ValueError(f"deposit_streams: unsupported device {dev}")
+
+
+def deposit_streams_plain(
+    staging: torch.Tensor, mask_bits: torch.Tensor, body_words: torch.Tensor, words_cap: int
+) -> torch.Tensor:
+    """Plain PyTorch version of K10: its backward walk as vector ops over
+    all lanes, one Python iteration per step."""
+    cap = -(-words_cap // GROUP_LANES) * GROUP_LANES
+    n_lanes, B1 = staging.shape
+    ngroups = n_lanes // GROUP_LANES
+    dev = staging.device
+    st = widen(staging)
+    masks = widen(mask_bits)
+    pre = PRELOAD_WORDS * GROUP_LANES
+    out = torch.zeros((ngroups, pre + cap), dtype=torch.int64, device=dev)
+    v1, v2 = st[:, B1 - 1].clone(), torch.zeros(n_lanes, dtype=torch.int64, device=dev)
+    head = body_words.to(torch.int64)[:, None]
+    for t in range(B1 - 2, -1, -1):
+        fired = ((masks[:, t >> 5] >> (t & 31)) & 1).bool()
+        f = fired.reshape(ngroups, GROUP_LANES).to(torch.int64)
+        head = head - f.sum(dim=1, keepdim=True)
+        slot = head + torch.cumsum(f, dim=1) - f
+        keep = (f > 0) & (slot >= 0) & (slot < cap)
+        g, l = keep.nonzero(as_tuple=True)
+        out[g, pre + slot[g, l]] = v2.reshape(ngroups, GROUP_LANES)[g, l]
+        v2 = torch.where(fired, v1, v2)
+        v1 = torch.where(fired, st[:, t], v1)
+    out[:, :GROUP_LANES] = v1.reshape(ngroups, GROUP_LANES)
+    out[:, GROUP_LANES:pre] = v2.reshape(ngroups, GROUP_LANES)
+    return narrow(out)
 
 
 def bucket_words(w: int) -> int:

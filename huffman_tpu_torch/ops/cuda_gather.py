@@ -1,13 +1,19 @@
-"""Table lookups (K2, K3, K8, K9): counterpart of
+"""Table lookups (K2, K3, K5, K8, K9): counterpart of
 huffman_tpu/ops/pallas_gather.py.
 
 * ``gather_u16_pairs`` (K2): both 16-bit halves of each packed rank word
   index the canonical symbol table, giving packed symbol pairs: the
   decoder's rank mode. Indices past the table read its last entry.
+* ``gather_u16`` (K5): one int32 index per element, clamped into the
+  16-bit table: the unpacked rank-mode decode output (``decode_groups``
+  with ``packed_out=False``) to symbols, as ``gather_u16_pallas``.
 * ``gather_codes`` (K3): symbol -> (code, length) through the dense
   ``len << 26 | code`` table, with the encoder's valid mask applied. The
   TPU needed two kernels for this one function (a row-displacement table
   and a packed-16 dense table); on the GPU the dense table is enough.
+  ``gather_table_codes`` takes a codebook's ``Tables`` and uses K3, or
+  the two-table gather of ``ops/encode.py`` when the codes are deeper
+  than the word's 26 bits.
 * ``build_rank_select`` (tensor ops): the succinct dictionary of the fused
   encoder, presence mask words, their exclusive counts, and a dense
   rank-ordered payload table.
@@ -30,7 +36,8 @@ import torch
 from ..constants import MAX_CODE_LEN, MAX_SYMBOLS
 from ..runtime import kernels
 from ..u32 import MASK32, narrow, popcount32, widen
-from .tables import PACKED_MAX_LEN
+from . import encode as enc
+from .tables import PACKED_MAX_LEN, Tables
 
 CODE_MASK = (1 << 26) - 1
 RANK_WORDS = MAX_SYMBOLS // 32  # presence mask words of the rank stage
@@ -67,6 +74,32 @@ def gather_u16_pairs_plain(packed_idx: torch.Tensor, sym_order: torch.Tensor) ->
     return narrow(lo | (hi << 16))
 
 
+def gather_u16(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``idx``: int32 of any shape; ``table``: (n,) int16 bits of the u16
+    table, n >= 1. Returns int32 ``table[clamp(idx, 0, n - 1)]``
+    (zero-extended) in ``idx``'s shape."""
+    dev = idx.device
+    kernels.check(idx, torch.int32, dev, "idx")
+    kernels.check(table, torch.int16, dev, "table")
+    if not 1 <= table.numel() <= MAX_SYMBOLS:
+        raise ValueError(f"gather_u16 needs a table of 1..{MAX_SYMBOLS} entries")
+    if dev.type == "cuda":
+        out = torch.empty_like(idx)
+        kernels.launch(
+            "gather_u16", idx.data_ptr(), idx.numel(), table.data_ptr(),
+            table.numel(), out.data_ptr(),
+        )
+        return out
+    if dev.type == "cpu":
+        return gather_u16_plain(idx, table)
+    raise ValueError(f"gather_u16: unsupported device {dev}")
+
+
+def gather_u16_plain(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    values = table.to(torch.int32) & 0xFFFF
+    return values[idx.to(torch.int64).clamp(0, values.numel() - 1)]
+
+
 def gather_codes(
     symbols: torch.Tensor,  # int16 bits of u16 symbols, any shape
     table: torch.Tensor,    # (65536,) int32 bits of len << 26 | code
@@ -90,6 +123,15 @@ def gather_codes(
     if dev.type == "cpu":
         return gather_codes_plain(symbols, table, n_valid)
     raise ValueError(f"gather_codes: unsupported device {dev}")
+
+
+def gather_table_codes(
+    symbols: torch.Tensor, tables: Tables, n_valid: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(codes, lens) of ``symbols`` through a host codebook's tables."""
+    if tables.enc_packed is not None:
+        return gather_codes(symbols, tables.enc_packed, n_valid)
+    return enc.gather_codes(symbols, tables.enc_codes, tables.enc_lens, n_valid)
 
 
 def gather_codes_plain(

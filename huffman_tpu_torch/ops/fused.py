@@ -1,5 +1,6 @@
 """The fused device encode: counterpart of huffman_tpu/ops/fused.py
-(``tiered_code_gather``, ``encode_device``, ``encode_device_bytes``).
+(``tiered_code_gather``, ``encode_device``, ``encode_device_bytes``,
+``roundtrip_device``, ``encode_device_auto``).
 
 From the uploaded bytes to the interleaved streams with no host codebook:
 histogram (K6) -> package-merge lengths at the input's alphabet tier (K7)
@@ -8,7 +9,10 @@ histogram (K6) -> package-merge lengths at the input's alphabet tier (K7)
 at the full alphabet) -> lane pack (K4) and stream assembly. The host
 reads back the alphabet size (to pick the tier), the groups' largest word
 total (to size the stream buffer), the (65536,) lengths (for the header)
-and the trimmed streams.
+and the trimmed streams. Length limits of 27..32 bits do not fit the
+rank gathers' ``len << 26 | code`` word: there the codes come from the
+canonical tables by the two-table gather of ``ops/encode.py``, as the JAX
+package's ``gather="xla"`` tier does.
 
 The JAX package selects the tier inside one program with ``lax.switch``;
 here the wrapper reads ``n_unique`` once and runs only that tier's kernels.
@@ -22,6 +26,8 @@ import torch
 
 from ..constants import ALPHABET_TIERS, GROUP_LANES, MAX_CODE_LEN, MAX_SYMBOLS
 from ..u32 import narrow, widen
+from . import decode as dec
+from . import encode as enc
 from .cuda_encode import encode_streams
 from .cuda_gather import (
     RANK_WORDS,
@@ -97,17 +103,23 @@ def encode_device(
     n_lanes, B = symbols.shape
     if n_lanes % GROUP_LANES:
         raise ValueError("n_lanes must be a multiple of GROUP_LANES")
-    if not 1 <= max_len <= PACKED_MAX_LEN:
-        raise ValueError(f"max_len={max_len} outside [1, {PACKED_MAX_LEN}]")
+    if not 1 <= max_len <= MAX_CODE_LEN:
+        raise ValueError(f"max_len={max_len} outside [1, {MAX_CODE_LEN}]")
     hist = histogram(symbols, n_pairs)
     n_unique = int((hist > 0).sum())  # the one read that picks the tier
     if n_unique > (1 << max_len):
         raise ValueError(
             f"max_len={max_len} cannot encode {n_unique} distinct symbols"
         )
-    lengths, codes, lens, cap = tiered_code_gather(
-        hist, n_unique, symbols, n_pairs, max_len=max_len
-    )
+    if max_len <= PACKED_MAX_LEN:
+        lengths, codes, lens, cap = tiered_code_gather(
+            hist, n_unique, symbols, n_pairs, max_len=max_len
+        )
+    else:
+        cap = tier_for(n_unique)
+        lengths = device_code_lengths(hist, max_len, cap, n_unique)
+        tabs = device_canonical_tables(lengths)
+        codes, lens = enc.gather_codes(symbols, tabs.enc_codes, tabs.enc_lens, n_pairs)
     min_len = torch.where(lengths > 0, lengths, MAX_CODE_LEN).min()
     n_real = -(-n_pairs // B)
     streams, counts = encode_streams(codes, lens, n_pairs, min_len, n_real)
@@ -125,3 +137,35 @@ def encode_device_bytes(
     the byte-pair symbols are a view of them on the device."""
     symbols = bytes_to_symbols_device(data_bytes).reshape(-1, B)
     return encode_device(symbols, n_pairs, max_len)
+
+
+# The JAX package's encode_device_auto reruns encode_device on its exact
+# tier when the fast tier cannot take the length limit; here encode_device
+# takes every limit in one call.
+encode_device_auto = encode_device
+
+
+def roundtrip_device(
+    symbols: torch.Tensor,  # (n_lanes, B) int16 bits, n_lanes % 1024 == 0
+    n_pairs: int,
+    max_len: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Encode on the device, decode there, compare: the fused encode, then
+    per-block slabs rebuilt from its code lengths (two-table gather,
+    ``pack_blocks``) decoded by ``decode_blocks``. Returns (ok, the
+    payload's word total), both 0-dim tensors on the device."""
+    n_lanes, B = symbols.shape
+    r = encode_device(symbols, n_pairs, max_len)
+    tabs = device_canonical_tables(r["lengths"])
+    codes, lens = enc.gather_codes(symbols, tabs.enc_codes, tabs.enc_lens, n_pairs)
+    offsets, _ = enc.block_offsets(lens)
+    slab = enc.pack_blocks(codes, lens, offsets, B)
+    present = r["lengths"] > 0
+    sym_order = torch.zeros(MAX_SYMBOLS, dtype=torch.int64, device=symbols.device)
+    sym_order[tabs.sym_rank[present].long()] = torch.nonzero(present)[:, 0]
+    dec_max_len = max(int(r["lengths"].max()), 1)
+    out = dec.decode_blocks(slab, tabs.lj_limit, tabs.base, sym_order, B, dec_max_len)
+    valid = torch.arange(n_lanes * B, device=symbols.device).reshape(n_lanes, B) < n_pairs
+    sym = symbols.to(torch.int32) & 0xFFFF
+    ok = torch.where(valid, out == sym, True).all()
+    return ok, r["counts"].sum()

@@ -28,6 +28,8 @@ class Tables(NamedTuple):
     sym_order: torch.Tensor  # (n_unique,) int16 bits of the u16 symbols
     enc_packed: torch.Tensor | None  # (MAX_SYMBOLS,) int32 bits of len<<26|code;
                                      # None when max_len > PACKED_MAX_LEN
+    enc_codes: torch.Tensor  # (MAX_SYMBOLS,) int32 bits of the u32 codes
+    enc_lens: torch.Tensor   # (MAX_SYMBOLS,) int32 code lengths (0 absent)
     min_len: int             # shortest code length present (1 if none)
     max_len: int             # longest code length present (1 if none)
 
@@ -57,6 +59,8 @@ def tables_from_numpy(
         base=from_numpy_u32(np.asarray(base, np.int64) & 0xFFFFFFFF, device),
         sym_order=torch.from_numpy(so.copy()).to(device),
         enc_packed=enc,
+        enc_codes=from_numpy_u32(codes, device),
+        enc_lens=torch.from_numpy(lengths.astype(np.int32)).to(device),
         min_len=min(int(present.min()) if present.size else 1, max_len),
         max_len=max_len,
     )

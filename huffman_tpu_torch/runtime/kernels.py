@@ -44,8 +44,10 @@ KERNELS = {
         [_P, _I64, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
     "gather_u16_pairs": ("htpu_gather_u16_pairs", [_P, _I64, _P, _I, _P]),
+    "gather_u16": ("htpu_gather_u16", [_P, _I64, _P, _I, _P]),
     "gather_codes": ("htpu_gather_codes", [_P, _I64, _I64, _P, _P, _P]),
     "pack_lanes": ("htpu_pack_lanes", [_P, _P, _I64, _I, _P]),
+    "deposit_streams": ("htpu_deposit_streams", [_P, _I, _P, _I, _P, _I, _I, _P]),
     "histogram": ("htpu_histogram", [_P, _I64, _P]),
     "package_merge": (
         "htpu_package_merge",

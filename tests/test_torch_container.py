@@ -1,5 +1,5 @@
-"""The port's HTPU v2 slice against the JAX package: containers equal byte
-for byte, and each package decodes the other's containers."""
+"""The port's HTPU containers against the JAX package: containers equal
+byte for byte, and each package decodes the other's containers."""
 
 import numpy as np
 import pytest
@@ -13,6 +13,7 @@ from huffman_tpu.codebook import Codebook, package_merge_lengths
 from huffman_tpu.constants import MAX_SYMBOLS
 from huffman_tpu.ops.tables import device_tables
 from huffman_tpu.utils.benchmark import silesia_like, zipf_pairs
+from huffman_tpu_torch.corpus import fibonacci_pairs
 from huffman_tpu_torch.ops.tables import tables_from_codebook
 
 CPU = torch.device("cpu")
@@ -70,14 +71,30 @@ def test_caller_codebook_and_odd_block_symbols():
 
 
 def test_other_container_kinds_are_not_ported():
+    from huffman_tpu.container import streaming
+
     data = _inputs()["zipf300"][:20_000]
     for blob in (
         huffman_tpu.compress(data, backend="numpy", n_shards=2),
-        huffman_tpu.compress_reference(data),
-        huffman_tpu.compress(data, backend="numpy", mode="blocks"),
+        streaming.compress_bytes(data, backend="numpy"),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             huffman_tpu_torch.decompress(blob, "cpu")
+
+
+@pytest.mark.parametrize("mode", ["interleaved", "blocks"])
+def test_codes_deeper_than_26_bits(mode):
+    """Fibonacci symbol counts: the unlimited code reaches 29 bits, past
+    the ``len << 26 | code`` word, so the codes come from the two-table
+    gather."""
+    data = fibonacci_pairs().tobytes() + b"\x05"
+    ours = huffman_tpu_torch.compress(data, "cpu", max_code_len=None, mode=mode)
+    theirs = huffman_tpu.compress(data, backend="numpy", max_code_len=None, mode=mode)
+    assert ours == theirs
+    assert ours[7] == 29  # the header's max code length
+    assert huffman_tpu_torch.decompress(theirs, "cpu") == data
+    if mode == "interleaved":  # the JAX package decodes v1 with a host loop per symbol
+        assert huffman_tpu.decompress(ours) == data
 
 
 def test_corrupt_payload_fails_crc():

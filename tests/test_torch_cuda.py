@@ -1,6 +1,7 @@
 """The port's CUDA kernels on a card: each kernel against its plain PyTorch
-version on the same CUDA tensors, and both compress routes against the JAX
-package's host path. Exact equality throughout.
+version on the same CUDA tensors, and the compress routes (v2 on both
+routes, v1, the reference format, codes deeper than 26 bits) against the
+JAX package's host path. Exact equality throughout.
 
 These tests need an NVIDIA card (Hopper: the kernels build for sm_90a)
 and skip without one. tests/conftest.py imports JAX, which a machine set
@@ -21,6 +22,7 @@ from huffman_tpu.constants import GROUP_LANES, MAX_SYMBOLS
 from huffman_tpu.container import interleave as il
 from huffman_tpu.utils.benchmark import silesia_like, zipf_pairs
 from huffman_tpu_torch.container import block_format as bf
+from huffman_tpu_torch.corpus import fibonacci_pairs
 from huffman_tpu_torch.ops import (
     cuda_decode,
     cuda_encode,
@@ -244,3 +246,119 @@ def test_rank_gather_kernels_match_plain(dev, n_unique, max_len, monkeypatch):
     kern = getattr(cuda_gather, name)
     assert all(torch.equal(a, b) for a, b in zip(kern(*args), plain(*args)))
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n_table", [1, 2, 3000, 65536])
+def test_gather_u16_kernel_matches_plain(dev, n_table):
+    """Any shape, indices far outside the table, element counts that are
+    not a multiple of four, and a view that is not 16-byte aligned (the
+    kernel's scalar path)."""
+    rng = np.random.default_rng(n_table)
+    table = torch.from_numpy(rng.integers(-(1 << 15), 1 << 15, n_table).astype(np.int16)).to(dev)
+    idx = torch.from_numpy(
+        np.concatenate([rng.integers(-5, n_table + 5, 70_001), rng.integers(-(1 << 31), 1 << 31, 999)])
+        .astype(np.int32)
+    ).to(dev)
+    for x in (idx, idx[1:], idx[:7].reshape(7, 1), idx[:3 * 8 * 128].reshape(3, 8, 128)):
+        got = cuda_gather.gather_u16(x, table)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cuda_gather.gather_u16_plain(x, table))
+
+
+def _protocol_case(seed, n_real, B, min_len, max_len, n_groups):
+    """(codes, eff) with random codes of random lengths on the real steps
+    and code 0 with ``min_len`` on the garbage steps."""
+    rng = np.random.default_rng(seed)
+    n_lanes = n_groups * GROUP_LANES
+    n_pairs = n_real * B - int(rng.integers(0, B))
+    lens = rng.integers(min_len, max_len + 1, size=(n_lanes, B)).astype(np.int32)
+    codes = (rng.integers(0, 1 << 32, size=(n_lanes, B), dtype=np.uint64)
+             & ((np.uint64(1) << lens.astype(np.uint64)) - np.uint64(1))).astype(np.uint32)
+    valid = (np.arange(n_lanes * B) < n_pairs).reshape(n_lanes, B)
+    codes = np.where(valid, codes, 0).astype(np.uint32)
+    eff = np.where(valid, lens, min_len).astype(np.int32)
+    return torch.from_numpy(codes.view(np.int32)), torch.from_numpy(eff)
+
+
+@pytest.mark.parametrize("seed,n_real,B,min_len,max_len,n_groups", [
+    (0, 1, 32, 5, 12, 1),        # one real lane
+    (1, 1024, 16, 32, 32, 1),    # all-32-bit codes: every step fires
+    (2, 2400, 37, 1, 32, 3),     # three groups, B not a multiple of 32
+    (3, 3000, 512, 1, 18, 3),    # the container's block size
+    (4, 700, 16, 1, 2, 1),       # lanes with fewer than 64 bits
+])
+def test_deposit_kernel_matches_plain(dev, seed, n_real, B, min_len, max_len, n_groups):
+    """K10 against its plain version and the deposit path against the
+    tensor-op pack_streams, at the tight cap (the largest group's body)
+    and at a loose one."""
+    codes, eff = _protocol_case(seed, n_real, B, min_len, max_len, n_groups)
+    _, counts = cuda_encode.pack_streams(codes, eff, n_real, B * GROUP_LANES)
+    tight = max(int(counts.max()) - 2 * GROUP_LANES, 1)
+    c, e = codes.to(dev), eff.to(dev)
+    for cap in (tight, B * GROUP_LANES):
+        ref_s, ref_c = cuda_encode.pack_streams(c, e, n_real, cap)
+        kernels.reset_launch_counts()
+        got_s, got_c = cuda_encode.pack_streams_kernel_deposit(c, e, n_real, cap)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["deposit_streams"] == 1
+        assert torch.equal(got_c, ref_c)
+        for g, n in enumerate(ref_c.tolist()):
+            assert torch.equal(got_s[g, :n], ref_s[g, :n])
+            assert not got_s[g, n:].any()
+        r, fire = cuda_encode._fires(e, n_real)
+        st = cuda_encode.pack_lanes(c, e)
+        mb = -(-B // 32)
+        mask = torch.nn.functional.pad(fire, (0, mb * 32 - B)).reshape(-1, mb, 32).to(torch.int64)
+        mask = (mask << torch.arange(32, device=dev)).sum(dim=2)
+        mask = torch.where(mask >= 1 << 31, mask - (1 << 32), mask).to(torch.int32)
+        body = r[:, -1].reshape(-1, GROUP_LANES).sum(dim=1, dtype=torch.int32)
+        assert torch.equal(cuda_encode.deposit_streams(st, mask, body, cap),
+                           cuda_encode.deposit_streams_plain(st, mask, body, cap))
+
+
+def _unpacked_case(dev, alphabet, max_len):
+    B, n_real = 64, 2500
+    symbols, cb, streams = _streams(alphabet, n_real, B, alphabet, max_len)
+    stacked, _ = il.pad_streams(streams)
+    ngroups = len(streams)
+    s = torch.from_numpy(stacked.reshape(ngroups, -1).view(np.int32)).to(dev)
+    n = torch.from_numpy(
+        np.clip(n_real - GROUP_LANES * np.arange(ngroups), 0, GROUP_LANES).astype(np.int32)
+    ).to(dev)
+    return symbols, cb, s, n, B
+
+
+@pytest.mark.parametrize("alphabet", [300, 4000, 65536])
+def test_unpacked_decode_on_the_card(dev, alphabet):
+    symbols, cb, s, n, B = _unpacked_case(dev, alphabet, 18)
+    t = tables_from_codebook(cb, dev)
+    translate = cb.n_unique <= cuda_decode.TRANSLATE_MAX_ALPHABET
+    kernels.reset_launch_counts()
+    got = cuda_decode.decode_groups(s, n, t, B, translate, packed_out=False)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["gather_u16"] == int(not translate)
+    ngroups = s.shape[0]
+    dec = got.reshape(ngroups, B, GROUP_LANES).transpose(1, 2).reshape(-1).cpu().numpy()
+    np.testing.assert_array_equal(dec[: symbols.size], symbols)
+
+
+def test_v1_reference_and_deep_codes_at_benchmark_size(dev):
+    """32 MiB v1 and reference containers, and the 29-bit Fibonacci input
+    in v2 and v1, byte-identical to the JAX package's host path."""
+    data = silesia_like(32 << 20, seed=7).tobytes()
+    kernels.reset_launch_counts()
+    blob = huffman_tpu_torch.compress(data, dev, mode="blocks")
+    assert kernels.launch_counts()["gather_codes"] == 1
+    assert blob == huffman_tpu.compress(data, backend="numpy", mode="blocks")
+    assert huffman_tpu_torch.decompress(blob, dev) == data
+    ref = huffman_tpu_torch.compress_reference(data, dev)
+    assert ref == huffman_tpu.compress_reference(data)
+    assert huffman_tpu.decompress_reference(ref) == data
+
+    fib = fibonacci_pairs().tobytes()
+    for mode in ("interleaved", "blocks"):
+        blob = huffman_tpu_torch.compress(fib, dev, max_code_len=None, mode=mode)
+        assert blob[7] == 29
+        assert blob == huffman_tpu.compress(fib, backend="numpy", max_code_len=None, mode=mode)
+        assert huffman_tpu_torch.decompress(blob, dev) == fib
+    assert huffman_tpu_torch.compress_reference(fib, dev) == huffman_tpu.compress_reference(fib)

@@ -130,6 +130,41 @@ def test_decode_groups_matches_jax_and_twin(alphabet, max_len):
     np.testing.assert_array_equal(dec, symbols)
 
 
+@pytest.mark.parametrize("alphabet,max_len", [(300, 12), (1025, 18), (4000, 18)])
+def test_unpacked_decode_matches_jax(alphabet, max_len):
+    """``packed_out=False``: one symbol per int32 in JAX's (ngroups *
+    n_steps, 8, 128) layout; in rank mode (alphabets past the in-kernel
+    tier) the ranks are translated by K5's plain version, as the JAX
+    decoder translates them with ``sym_order_dev``."""
+    B, n_real = 16, 1100
+    symbols, cb, streams = _setup(alphabet + 7, n_real, B, alphabet, max_len)
+    stacked, _ = il.pad_streams(streams)
+    ngroups = len(streams)
+    n_real_g = np.clip(n_real - GROUP_LANES * np.arange(ngroups), 0, GROUP_LANES)
+    translate = cb.n_unique <= TRANSLATE_MAX_ALPHABET
+    got = decode_groups(
+        torch.from_numpy(stacked.reshape(ngroups, -1).view(np.int32)),
+        torch.from_numpy(n_real_g.astype(np.int32)),
+        tables_from_codebook(cb, CPU), B, translate, packed_out=False,
+    )
+    symtab, sym_rows, _ = pd.build_symtab(cb.sym_order)
+    meta = np.zeros((ngroups, 4), dtype=np.int32)
+    meta[:, 0] = n_real_g
+    want = np.asarray(pd.decode_groups(
+        jnp.asarray(stacked), jnp.asarray(cb.lj_limit),
+        jnp.asarray((cb.base & 0xFFFFFFFF).astype(np.uint32)),
+        jnp.asarray(symtab), jnp.asarray(meta), B, stacked.shape[0] // ngroups, sym_rows,
+        max_len=max(cb.max_len, 1), translate=translate,
+        min_len=int(cb.lengths[cb.lengths > 0].min()), interpret=True,
+        sym_order_dev=None if translate else jnp.asarray(cb.sym_order.astype(np.int32)),
+        packed_out=False,
+    ))
+    assert got.shape == want.shape == (ngroups * B, 8, 128)
+    np.testing.assert_array_equal(got.numpy(), want)
+    dec = got.numpy().reshape(ngroups, B, GROUP_LANES).transpose(0, 2, 1).reshape(-1)
+    np.testing.assert_array_equal(dec[: symbols.size], symbols)
+
+
 def test_decode_groups_rejects_odd_steps_and_wide_translate():
     _, cb, streams = _setup(0, 10, 8, 300, 18)
     t = tables_from_codebook(cb, CPU)

@@ -15,11 +15,14 @@ import huffman_tpu
 import huffman_tpu_torch
 from huffman_tpu.container import block_format as jbf
 from huffman_tpu.ops import pallas_gather as jpg
+from huffman_tpu.codebook import package_merge_lengths as jax_package_merge_lengths
+from huffman_tpu.ops.fused import encode_device as jax_encode_device
 from huffman_tpu.ops.fused import encode_device_bytes as jax_encode_device_bytes
+from huffman_tpu.ops.fused import roundtrip_device as jax_roundtrip_device
 from huffman_tpu.ops.pallas_hist import histogram_pallas
 from huffman_tpu_torch.codebook import Codebook, package_merge_lengths
 from huffman_tpu_torch.container import block_format as bf
-from huffman_tpu_torch.corpus import zipf_pairs
+from huffman_tpu_torch.corpus import fibonacci_pairs, zipf_pairs
 from huffman_tpu_torch.ops import fused
 from huffman_tpu_torch.ops.cuda_gather import (
     build_rank_select,
@@ -161,7 +164,9 @@ def test_fused_container_matches_host_routes(n_unique, tier, monkeypatch):
         data, symbols, True, data[-1], None, B, nblocks, "numpy", "interleaved", True, 18
     )
     assert out == want
-    host, _ = bf._compress_host_codebook(data, True, data[-1], None, B, nblocks, 18, CPU)
+    host, _ = bf._compress_host_codebook(
+        data, True, data[-1], None, B, nblocks, 18, CPU, "interleaved", True
+    )
     assert out == host
 
     # Through the public entry point, with the fused route's size threshold
@@ -196,3 +201,59 @@ def test_fused_encode_rejects_an_infeasible_limit():
     sym = torch.arange(1024 * 4, dtype=torch.int32).to(torch.int16).reshape(1024, 4)
     with pytest.raises(ValueError, match="cannot encode"):
         fused.encode_device(sym, 4096, max_len=10)
+
+
+def _lanes(sym: np.ndarray, B: int) -> np.ndarray:
+    """u16 symbols zero-padded to whole groups of B-symbol lanes."""
+    n_lanes = -(-sym.size // (B * 1024)) * 1024
+    out = np.zeros(n_lanes * B, np.uint16)
+    out[: sym.size] = sym
+    return out
+
+
+@pytest.mark.parametrize("max_len", [27, 28, 29, 30, 31, 32])
+def test_encode_device_past_26_bits_matches_jax_xla_tier(max_len):
+    """Limits past the rank gathers' 26 bits: package-merge (K7's plain
+    version), canonical tables and the two-table gather, against the JAX
+    encoder's exact tier (``gather="xla"``)."""
+    B = 4
+    sym = np.frombuffer(fibonacci_pairs(17, seed=max_len).tobytes(), "<u2")
+    padded = _lanes(sym, B)
+    r = jax_encode_device(
+        jnp.asarray(padded.astype(np.int32)), jnp.int32(sym.size), B, max_len=max_len,
+        interpret=True, gather="xla", alphabet_cap=256,
+    )
+    assert bool(r["ok"])
+    ours = fused.encode_device(_u16(padded).reshape(-1, B), sym.size, max_len)
+    np.testing.assert_array_equal(ours["lengths"].numpy(), np.asarray(r["lengths"]))
+    counts = np.asarray(r["counts"])
+    np.testing.assert_array_equal(ours["counts"].numpy(), counts)
+    want_s, got_s = np.asarray(r["streams"]), ours["streams"].numpy().view(np.uint32)
+    for g, n in enumerate(counts):
+        np.testing.assert_array_equal(got_s[g, :n], want_s[g, :n])
+
+
+@pytest.mark.parametrize("max_len", [27, 28])
+def test_encode_device_limit_binds_past_26_bits(max_len):
+    """On the 29-bit Fibonacci input the limit binds: the lengths equal
+    the JAX package's host package-merge at that limit."""
+    B = 512
+    data = fibonacci_pairs()
+    sym = np.frombuffer(data.tobytes(), "<u2")
+    ours = fused.encode_device_bytes(torch.from_numpy(_lanes(sym, B).view(np.uint8)), sym.size, B, max_len)
+    want = jax_package_merge_lengths(np.bincount(sym, minlength=65536), max_len)
+    assert int(want.max()) == max_len
+    np.testing.assert_array_equal(ours["lengths"].numpy(), want)
+
+
+def test_roundtrip_device_matches_jax():
+    B, n_pairs = 64, 30000
+    rng = np.random.default_rng(0)
+    alpha = rng.choice(65536, 150, replace=False)
+    p = 1.0 / np.arange(1, 151) ** 1.1
+    sym = rng.choice(alpha, n_pairs, p=p / p.sum()).astype(np.uint16)
+    padded = _lanes(sym, B)
+    ok, words = fused.roundtrip_device(_u16(padded).reshape(-1, B), n_pairs, 32)
+    want_ok, want_words = jax_roundtrip_device(padded.astype(np.int32), np.int32(n_pairs), B, interpret=True)
+    assert bool(ok) and bool(want_ok)
+    assert int(words) == int(want_words)

@@ -1,5 +1,5 @@
-"""Port lookups (K2, K3 plain versions) against the JAX Pallas gathers run
-in interpret mode. Exact equality."""
+"""Port lookups (K2, K3, K5 plain versions) against the JAX Pallas gathers
+run in interpret mode. Exact equality."""
 
 import numpy as np
 import pytest
@@ -15,10 +15,12 @@ from huffman_tpu.ops.pallas_gather import (
     gather_packed32_dense,
     gather_table_pallas,
     gather_u16_pairs_pallas,
+    gather_u16_pallas,
 )
 from huffman_tpu_torch.ops.cuda_gather import (
     gather_codes,
     gather_codes_plain,
+    gather_u16,
     gather_u16_pairs,
     gather_u16_pairs_plain,
 )
@@ -61,6 +63,30 @@ def test_gather_u16_pairs_matches_pallas(n_unique):
     np.testing.assert_array_equal(
         got.numpy().view(np.uint32).reshape(-1), so[lo] | (so[hi] << 16)
     )
+
+
+@pytest.mark.parametrize("n_unique", [1, 3000])
+def test_gather_u16_matches_pallas(n_unique):
+    """The unpacked rank-mode translation: int32 ranks in any shape through
+    the JAX decoder's packed-16 table (which the caller feeds clipped
+    ranks), and past the table the clamp of ``jnp.take(mode="clip")``."""
+    rng = np.random.default_rng(n_unique)
+    table = rng.integers(0, 1 << 16, n_unique).astype(np.uint16)
+    idx = rng.integers(0, n_unique, (8, 8, 128)).astype(np.int32)  # one grid cell
+    rows = pd._pack_rows_for(n_unique)
+    even = np.zeros(rows * 128, np.uint32)
+    odd = np.zeros(rows * 128, np.uint32)
+    even[: (n_unique + 1) // 2] = table[0::2]
+    odd[: n_unique // 2] = table[1::2]
+    want = np.asarray(gather_u16_pallas(jnp.asarray(idx), jnp.asarray(even | (odd << 16)), interpret=True))
+    t = torch.from_numpy(table.view(np.int16))
+    got = gather_u16(torch.from_numpy(idx), t)
+    assert got.dtype == torch.int32 and got.shape == idx.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+    wild = rng.integers(-(1 << 31), 1 << 31, 5000, dtype=np.int64).astype(np.int32)
+    want = np.asarray(jnp.take(jnp.asarray(table.astype(np.int32)), jnp.asarray(wild), mode="clip"))
+    np.testing.assert_array_equal(gather_u16(torch.from_numpy(wild), t).numpy(), want)
 
 
 def test_gather_u16_pairs_clips_past_the_table():
