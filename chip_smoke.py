@@ -19,6 +19,10 @@ Phases, each printing one line or a few:
          codebook (the dense code gather);
        - decompress of silesia-like (rank-mode decode, rank -> symbol
          pairs) and of an 8 MiB 300-symbol input (translate-mode decode);
+         the rank-mode decode again with its streams repeated five times
+         along the groups (160 groups: more blocks than the card's 132
+         SMs);
+       - the lane pack at the full-alphabet shape as well as silesia-like;
        - the in-kernel deposit (K10) on the lane-pack and stream-assembly
          arguments of the silesia-like and full-alphabet compresses, with
          the tensor-op ``pack_streams`` timed on the same inputs;
@@ -54,6 +58,7 @@ result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -97,6 +102,28 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return r.stdout.strip().splitlines()[0]
+
+
+def check_no_spills(log: str, kernels: tuple[str, ...]) -> None:
+    """Fail if ptxas reports spill stores or loads for a function whose
+    name holds one of ``kernels``. An empty log (a library built before)
+    is reported and not checked."""
+    if not log:
+        print("ptxas: library built before this run; spills not read")
+        return
+    current, seen = None, set()
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            current = line.rsplit(" ", 1)[-1]
+        elif "spill stores" in line and current:
+            hit = [k for k in kernels if k in current]
+            stores, loads = (int(n) for n in re.findall(r"(\d+) bytes spill", line))
+            if hit and (stores or loads):
+                raise AssertionError(f"ptxas: {current} spills ({line.strip()})")
+            seen.update(hit)
+    if missing := set(kernels) - seen:
+        raise AssertionError(f"ptxas: no properties line for {sorted(missing)}")
+    print(f"ptxas: no spills in {', '.join(kernels)}")
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -247,6 +274,7 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
+    check_no_spills(log, ("decode_groups_kernel", "pack_lanes_kernel"))
 
     silesia = silesia_like(BIG, seed=7).tobytes()
     wide = wide30k(BIG).tobytes()
@@ -285,6 +313,10 @@ def main() -> int:
                               *d["decode_groups"], False)[1]["gather_u16"]
                 for name, d in (("wide30k", dec_wide), ("full", dec_full))}
 
+    # The groups are independent, so the silesia-like streams repeated
+    # along the groups are a valid 160-group input.
+    streams, n_real, *rest = dec["decode_groups"]
+    dec_160 = (streams.repeat(5, 1), n_real.repeat(5), *rest)
     cg, ce, cd, ch, dc = cuda_gather, cuda_encode, cuda_decode, cuda_hist, device_codebook
 
     checks = [  # (record name, variant, kernel, plain, args, iters, plain iters)
@@ -300,12 +332,15 @@ def main() -> int:
         ("gather_rank_canonical", "identity, full", cg.gather_rank_canonical,
          cg.gather_rank_canonical_plain, enc_full["gather_rank_canonical"], 20, 2),
         ("pack_lanes", "silesia", ce.pack_lanes, ce.pack_lanes_plain, enc["pack_lanes"], 10, 2),
+        ("pack_lanes", "full", ce.pack_lanes, ce.pack_lanes_plain, enc_full["pack_lanes"], 10, 2),
         ("gather_codes", "silesia", cg.gather_codes, cg.gather_codes_plain, enc_host["gather_codes"], 20, 3),
         ("decode_groups", "rank mode", cd.decode_groups, cd.decode_groups_plain, dec["decode_groups"], 5, 2),
         ("gather_u16_pairs", "silesia", cg.gather_u16_pairs, cg.gather_u16_pairs_plain,
          dec["gather_u16_pairs"], 20, 3),
         ("decode_groups", "translate mode", cd.decode_groups, cd.decode_groups_plain,
          dec_tr["decode_groups"], 5, 2),
+        ("decode_groups", "rank mode, 160 groups", cd.decode_groups, cd.decode_groups_plain,
+         dec_160, 5, 1),
         ("deposit_streams", "silesia", ce.deposit_streams, ce.deposit_streams_plain, deposit["silesia"], 10, 1),
         ("deposit_streams", "full", ce.deposit_streams, ce.deposit_streams_plain, deposit["full"], 10, 1),
         ("gather_u16", "wide30k", cg.gather_u16, cg.gather_u16_plain, unpacked["wide30k"], 20, 3),
@@ -347,7 +382,7 @@ def main() -> int:
         if err != 0:
             raise AssertionError(f"{name} [{variant}]: kernel differs from its plain version")
         records.setdefault(name, []).append(rec)
-    del enc_host, dec, dec_tr, checks, deposit, unpacked
+    del enc_host, dec, dec_tr, dec_160, checks, deposit, unpacked
 
     # Phase 3: the paths, counting launches.
     def drive(name, data, **kwargs):

@@ -8,27 +8,46 @@
 // One CUDA block decodes one group; thread t is block lane t of the group
 // (t = s*128 + l in the JAX (8, 128) tile layout). Each step decodes one
 // symbol per lane:
-//   1. len  = min_len + #(peek >= lj_limit[i]), unsigned compares;
+//   1. len  = min_len + #(peek >= lj_limit[i]) over min_len-1 <= i <
+//      max_len-1, unsigned compares;
 //   2. rank = base[len] + (peek >> (32 - len)), wrapping mod 2^32;
 //   3. translate mode: symbol = sym_table[min(rank, n - 1)] from shared
 //      memory; otherwise the rank itself (K2 translates afterwards);
 //   4. shift the 64-bit buffer left by len;
 //   5. lanes left with < 33 bits take one word each from the sequential
-//      stream at head + (exclusive count of refilling lanes before them),
-//      a block-wide scan built from __ballot_sync + __popc per warp and
-//      a 32-entry shared array of warp totals;
+//      stream at head + (exclusive count of refilling lanes before them);
 //   6. head advances by the number of refills.
-// Two steps pack into one output word (low half = even step), written at
+// Stream words at index >= stream_words read as 0. Two steps pack into one
+// output word (low half = even step), written at
 // out[(g * n_steps/2 + step/2) * 1024 + lane]: JAX's (ngroups*B/2, 8, 128).
 //
-// What bounds it on an H100: the serial dependency chain of each step
-// (length search, shifts, the block-wide scan with one __syncthreads),
-// not memory. A group is one block, so a 32 MiB input at B = 512 gives 32
-// groups and fills 32 of 132 SMs with one 1024-thread block each. The
-// design keeps the whole chain in registers and shared memory, reads each
-// stream word once with a plain global load (refilling lanes read
-// consecutive addresses), and needs one barrier per step by double
-// buffering the warp totals. The low occupancy is left for later work.
+// What bounds it on an H100: the serial chain of each step, which all 32
+// warps of the block run between one barrier and the next, so the step
+// costs the block's instructions over the SM's four schedulers plus the
+// chain's latency. Memory is not the bound (a group's stream is read once).
+// Three things would lengthen the step, and the design answers each:
+//   - the refill word's address is known only after the scan, and the next
+//     step needs its value: read from device memory it would be a cold load
+//     on every step. So the stream passes through a 16K-word ring in shared
+//     memory, filled ahead of head with 4-byte cp.async copies: after each
+//     step's barrier the block issues the next 1024 words if the ring has
+//     room (words below head are free), and a step waits only for copies
+//     issued kAhead steps before. head grows by at most 1024 words a step, so
+//     the ring holds every word a step reads (kRingWords >= 1024 *
+//     (kAhead + 2)). Any stream width and alignment works: each word is
+//     its own copy, zero-filled past stream_words;
+//   - a compare loop over the boundaries with runtime bounds does not
+//     unroll. So the block sorts the boundaries once and tabulates, for each
+//     12-bit prefix of peek, the count at the prefix's first value and
+//     whether a boundary falls inside the prefix. The count is monotone in
+//     peek, so an unsplit prefix gives the length with one shared load; a
+//     split one (only codes longer than 12 bits) walks the sorted
+//     boundaries from there. The result is the compare count exactly, for
+//     any boundary order;
+//   - a shuffle scan of the warp totals takes five dependent rounds. So two
+//     warp reductions (redux.sync) give a warp its offset and the total;
+//     one __syncthreads a step remains, with the warp totals double
+//     buffered.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -41,96 +60,141 @@ constexpr int kMaxCodeLen = 32;
 constexpr int kRefillThreshold = 33;
 constexpr int kPreloadWords = 2;
 constexpr int kMaxTranslate = 1024;  // largest alphabet decoded in-kernel
+constexpr int kRingWords = 16384;    // 64 KiB of dynamic shared memory
+constexpr int kAhead = 8;            // steps a ring copy has to land
+constexpr int kPrefixBits = 12;
+constexpr int kPrefixShift = 32 - kPrefixBits;
+constexpr uint8_t kSplit = 0x80;     // a boundary lies inside the prefix
+static_assert(kRingWords % kLanes == 0 && kRingWords >= kLanes * (kAhead + 2),
+              "the ring must hold kAhead steps of copies beyond head");
 
+__device__ __forceinline__ void copy_word(uint32_t* dst, const uint32_t* src,
+                                          bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void commit_copies() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <bool kTranslate>
 __global__ void __launch_bounds__(kLanes)
 decode_groups_kernel(const uint32_t* __restrict__ streams, int64_t stream_words,
                      const int32_t* __restrict__ n_real,
                      const uint32_t* __restrict__ lj_limit,
                      const uint32_t* __restrict__ base,
                      const uint16_t* __restrict__ sym_table, int n_sym,
-                     int translate, int n_steps, int min_len, int max_len,
+                     int n_steps, int min_len, int max_len,
                      uint32_t* __restrict__ out) {
-  __shared__ uint32_t s_lj[kMaxCodeLen];
+  extern __shared__ uint32_t ring[];  // kRingWords: word w at w % kRingWords
+  __shared__ uint32_t s_bound[kMaxCodeLen];  // the boundaries, ascending
   __shared__ uint32_t s_base[kMaxCodeLen + 1];
-  __shared__ uint16_t s_sym[kMaxTranslate];
+  __shared__ uint8_t s_prefix[1 << kPrefixBits];
+  __shared__ uint16_t s_sym[kTranslate ? kMaxTranslate : 1];
   __shared__ int s_warp_cnt[2][kWarps];
 
   const int lane = threadIdx.x;
   const int warp = lane >> 5;
   const int wl = lane & 31;
   const int g = blockIdx.x;
-
-  if (lane < kMaxCodeLen) s_lj[lane] = lj_limit[lane];
-  if (lane < kMaxCodeLen + 1) s_base[lane] = base[lane];
-  if (translate && lane < n_sym) s_sym[lane] = sym_table[lane];
-
   const uint32_t* stream = streams + (int64_t)g * stream_words;
-  auto load = [&](int64_t i) -> uint32_t {
-    return i < stream_words ? stream[i] : 0u;
+
+  auto copy = [&](int64_t w) {
+    const bool valid = w < stream_words;
+    copy_word(&ring[(uint32_t)w % kRingWords], stream + (valid ? w : 0), valid);
   };
-  uint32_t bufA = load(lane);
-  uint32_t bufB = load(kLanes + lane);
-  // Pad lanes start with a huge bit count, so they never refill.
-  int bits = lane < n_real[g] ? 64 : (1 << 30);
-  int64_t head = kPreloadWords * kLanes;
-  const unsigned lt_mask = (1u << wl) - 1u;
+  for (int i = lane; i < kRingWords; i += kLanes) copy(i);
+  commit_copies();
+
+  const int n_bound = max_len - min_len;  // 0..31
+  if (lane < kMaxCodeLen + 1) s_base[lane] = base[lane];
+  if (kTranslate && lane < n_sym) s_sym[lane] = sym_table[lane];
+  if (lane < n_bound) {  // rank sort of lj_limit[min_len-1 .. max_len-2]
+    const uint32_t v = lj_limit[min_len - 1 + lane];
+    int r = 0;
+    for (int j = 0; j < n_bound; ++j) {
+      const uint32_t u = lj_limit[min_len - 1 + j];
+      r += u < v || (u == v && j < lane);
+    }
+    s_bound[r] = v;
+  }
+  __syncthreads();
+  for (int p = lane; p < (1 << kPrefixBits); p += kLanes) {
+    const uint32_t lo = (uint32_t)p << kPrefixShift;
+    const uint32_t hi = lo | ((1u << kPrefixShift) - 1u);
+    int c_lo = 0, c_hi = 0;
+    for (int j = 0; j < n_bound; ++j) {
+      c_lo += s_bound[j] <= lo;
+      c_hi += s_bound[j] <= hi;
+    }
+    s_prefix[p] = (uint8_t)(c_lo | (c_hi != c_lo ? kSplit : 0));
+  }
+  wait_copies<0>();
   __syncthreads();
 
-  uint32_t* out_g = out + (int64_t)g * (n_steps / 2) * kLanes + lane;
-  uint32_t pair = 0;
-  for (int t = 0; t < n_steps; ++t) {
-    const uint32_t peek = bufA;
-    int len = min_len;
-    for (int i = min_len - 1; i < max_len - 1; ++i) len += peek >= s_lj[i];
-    // len is in [1, 32], so the shift is in [0, 31].
+  uint64_t buf = (uint64_t)ring[lane] << 32 | ring[kLanes + lane];
+  // Pad lanes start with a huge bit count, so they never refill.
+  int bits = lane < n_real[g] ? 64 : (1 << 30);
+  int64_t head = kPreloadWords * kLanes;  // next stream word to hand out
+  int64_t filled = kRingWords;            // words copied to the ring so far
+  const unsigned lt_mask = (1u << wl) - 1u;
+
+  auto step = [&](int parity) -> uint32_t {
+    const uint32_t peek = (uint32_t)(buf >> 32);
+    const uint32_t e = s_prefix[peek >> kPrefixShift];
+    int c = e & (kSplit - 1);
+    if (e & kSplit) {
+      while (c < n_bound && s_bound[c] <= peek) ++c;
+    }
+    const int len = min_len + c;  // in [1, 32]: the shift is in [0, 31]
     const uint32_t rank = s_base[len] + (peek >> (32 - len));
     uint32_t sym = rank;
-    if (translate) sym = s_sym[rank < (uint32_t)n_sym ? rank : n_sym - 1];
-    if (t & 1) {
-      out_g[(int64_t)(t >> 1) * kLanes] = pair | (sym << 16);
-    } else {
-      pair = sym & 0xFFFFu;
-    }
-
-    // Consume len bits; a shift by 32 is undefined, so len == 32 moves B.
-    if (len == 32) {
-      bufA = bufB;
-      bufB = 0;
-    } else {
-      bufA = (bufA << len) | (bufB >> (32 - len));
-      bufB <<= len;
-    }
+    if (kTranslate) sym = s_sym[rank < (uint32_t)n_sym ? rank : n_sym - 1];
+    buf <<= len;
     bits -= len;
 
     const bool need = bits < kRefillThreshold;
     const unsigned ballot = __ballot_sync(0xFFFFFFFFu, need);
-    int* cnt = s_warp_cnt[t & 1];
+    int* cnt = s_warp_cnt[parity];
     if (wl == 0) cnt[warp] = __popc(ballot);
+    wait_copies<kAhead - 1>();
     __syncthreads();
-    // Every warp scans the 32 warp totals: lane i holds warp i's count.
-    const int c = cnt[wl];
-    int incl = c;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(0xFFFFFFFFu, incl, d);
-      if (wl >= d) incl += v;
-    }
-    const int warp_off = __shfl_sync(0xFFFFFFFFu, incl - c, warp);
-    const int total = __shfl_sync(0xFFFFFFFFu, incl, 31);
+    const int c_warp = cnt[wl];
+    const int total = __reduce_add_sync(0xFFFFFFFFu, c_warp);
+    const int warp_off = __reduce_add_sync(0xFFFFFFFFu, wl < warp ? c_warp : 0);
     if (need) {
-      const int k = warp_off + __popc(ballot & lt_mask);
-      const uint32_t word = load(head + k);
-      // bits is in [1, 32] here; the 32 case again avoids a 32-bit shift.
-      if (bits < 32) {
-        bufA |= word >> bits;
-        bufB |= word << (32 - bits);
-      } else {
-        bufB |= word;
-      }
+      // bits is in [1, 32] here, so the shift is in [0, 31].
+      const int64_t w = head + warp_off + __popc(ballot & lt_mask);
+      buf |= (uint64_t)ring[(uint32_t)w % kRingWords] << (32 - bits);
       bits += 32;
     }
+    // Words below head are consumed by every lane that passed the barrier:
+    // their slots take the next chunk. The block reads [head, head+total)
+    // now, all of it copied at least kAhead steps ago.
+    if (filled + kLanes <= head + kRingWords) {
+      copy(filled + lane);
+      filled += kLanes;
+    }
+    commit_copies();
     head += total;
+    return sym;
+  };
+
+  uint32_t* out_g = out + (int64_t)g * (n_steps / 2) * kLanes + lane;
+  for (int h = 0; h < n_steps / 2; ++h, out_g += kLanes) {
+    const uint32_t lo = step(0);
+    const uint32_t hi = step(1);
+    *out_g = (lo & 0xFFFFu) | (hi << 16);
   }
+  wait_copies<0>();
 }
 
 }  // namespace
@@ -141,13 +205,17 @@ extern "C" int htpu_decode_groups(const void* streams, int64_t stream_words,
                                   const void* sym_table, int n_sym,
                                   int translate, int n_steps, int min_len,
                                   int max_len, void* out, void* stream) {
-  if (ngroups > 0) {
-    decode_groups_kernel<<<ngroups, kLanes, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)streams, stream_words, (const int32_t*)n_real,
-        (const uint32_t*)lj_limit, (const uint32_t*)base,
-        (const uint16_t*)sym_table, n_sym, translate, n_steps, min_len,
-        max_len, (uint32_t*)out);
-  }
+  if (ngroups <= 0) return (int)cudaGetLastError();
+  const size_t ring_bytes = kRingWords * sizeof(uint32_t);
+  auto kernel = translate ? decode_groups_kernel<true> : decode_groups_kernel<false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ring_bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<ngroups, kLanes, ring_bytes, (cudaStream_t)stream>>>(
+      (const uint32_t*)streams, stream_words, (const int32_t*)n_real,
+      (const uint32_t*)lj_limit, (const uint32_t*)base,
+      (const uint16_t*)sym_table, n_sym, n_steps, min_len, max_len,
+      (uint32_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -45,7 +45,8 @@ def decode_groups(
     packed_out: bool = True,
 ) -> torch.Tensor:
     """Decode ``n_steps`` symbols in each of the 1024 lanes of every group.
-    ``n_steps`` must be even (two steps pack into one output word).
+    ``n_steps`` must be even (two steps pack into one output word). Any
+    stream width ``W`` works; words past it read as 0.
     ``packed_out=False`` unpacks the pairs and, in rank mode, translates
     the ranks to symbols (see the module docstring)."""
     if n_steps % 2:

@@ -40,7 +40,13 @@ from ..u32 import narrow, shl, widen
 def pack_lanes(codes: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     """``codes``/``lens``: (n_lanes, B) int32 (codes as u32 bits). Returns
     (n_lanes, B + 1) int32 staging: column t the word completed at step t
-    (0 if none), column B the final left-aligned partial word."""
+    (0 if none), column B the final left-aligned partial word.
+
+    Precondition, not checked: ``0 <= L <= 32`` and ``code < 2**L`` at
+    every step. Every caller meets it (the gathers write right-justified
+    codes; garbage steps carry code 0; ``pack_blocks`` pads with length
+    0), and the kernel's prefix-sum form equals the serial walk of
+    ``pack_lanes_plain`` under it."""
     dev = codes.device
     kernels.check(codes, torch.int32, dev, "codes")
     kernels.check(lens, torch.int32, dev, "lens")

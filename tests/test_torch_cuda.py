@@ -31,7 +31,7 @@ from huffman_tpu_torch.ops import (
     device_codebook,
     fused,
 )
-from huffman_tpu_torch.ops.tables import tables_from_codebook
+from huffman_tpu_torch.ops.tables import tables_from_codebook, tables_from_numpy
 from huffman_tpu_torch.runtime import kernels
 
 pytestmark = pytest.mark.cuda
@@ -120,6 +120,79 @@ def test_pack_kernel_matches_plain(dev, B):
     c = torch.from_numpy(codes.astype(np.uint32).view(np.int32)).to(dev)
     l = torch.from_numpy(lens.astype(np.int32)).to(dev)
     assert torch.equal(cuda_encode.pack_lanes(c, l), cuda_encode.pack_lanes_plain(c, l))
+
+
+def _deep_tables(shortest, seed, dev):
+    """Decode tables with every length in shortest..32 (1000 symbols),
+    sorted random boundaries and a random base: on random stream bits
+    nearly every lane consumes 29-32 bits a step, so nearly all refill
+    every step (all of them when shortest is 32). The kernel's contract
+    holds for any tables, not only those of a complete code."""
+    rng = np.random.default_rng(seed)
+    lengths = np.zeros(MAX_SYMBOLS, np.uint8)
+    lengths[:1000] = rng.integers(shortest, 33, 1000)
+    lj = np.full(32, 0xFFFFFFFF, np.uint32)
+    lj[shortest - 1 : 31] = np.sort(rng.integers(0, 1 << 32, 32 - shortest, dtype=np.uint64))
+    return tables_from_numpy(lengths, np.zeros(MAX_SYMBOLS, np.uint32), lj,
+                             rng.integers(-(1 << 40), 1 << 40, 33), np.arange(1000, dtype=np.uint16), dev)
+
+
+@pytest.mark.parametrize("case", ["ring wraps, all lanes refill", "ring wraps, 29-32 bits",
+                                  "unaligned width and row start", "more groups than SMs"])
+@pytest.mark.parametrize("translate", [True, False])
+def test_decode_kernel_edges(dev, case, translate):
+    """K1 against its plain version on random stream bits at the edges of
+    its stream ring and of its grid: 2048 steps that consume up to 1024
+    words each (the 16K-word ring wraps 128 times), a width W that is not
+    a multiple of 4 words with the stream read past its end, rows that
+    start off a 16-byte boundary, and 200 groups with a short last one."""
+    rng = np.random.default_rng(len(case) + translate)
+    B, ngroups = (2048, 2) if case.startswith("ring") else (8, 200) if case.startswith("more") else (64, 3)
+    if case.startswith("ring wraps, all"):
+        t = _deep_tables(32, 1, dev)
+    elif case.startswith("ring"):
+        t = _deep_tables(29, 2, dev)
+    else:
+        _, cb, _ = _streams(4, 2500, 8, 1000 if translate else 4000, 18)
+        t = tables_from_codebook(cb, dev)
+    W = 2 * GROUP_LANES + (B * GROUP_LANES if case.startswith("ring") else 4099)
+    flat = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, ngroups * W + 1).astype(np.int32)).to(dev)
+    s = flat[1:].view(ngroups, W)  # contiguous, data 4 bytes past the allocation
+    n = torch.from_numpy(rng.integers(0, GROUP_LANES + 1, ngroups).astype(np.int32))
+    n[-1] = 77
+    n = n.to(dev)
+    kernels.reset_launch_counts()
+    got = cuda_decode.decode_groups(s, n, t, B, translate)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decode_groups"] == 1
+    assert torch.equal(got, cuda_decode.decode_groups_plain(s, n, t, B, translate))
+
+
+@pytest.mark.parametrize("n_lanes,B,kind", [(1, 1, "mixed"), (13, 2, "mixed"), (1001, 30, "mixed"),
+                                            (3001, 512, "mixed"), (37, 4099, "mixed"),
+                                            (259, 512, "runs32"), (259, 513, "runs0"),
+                                            (259, 64, "boundary")])
+def test_pack_kernel_edges(dev, n_lanes, B, kind):
+    """K4 against its plain version: any B (4099 is many 128-step tiles),
+    lane counts that are not a multiple of the block's 8 rows, runs of
+    32-bit codes, runs of L = 0, and lanes ending exactly on a word."""
+    rng = np.random.default_rng(n_lanes + B)
+    lens = rng.integers(0, 33, size=(n_lanes, B))
+    run = slice(B // 4, max(3 * B // 4, B // 4 + 1))
+    if kind == "runs32":
+        lens[:, run] = 32
+    elif kind == "runs0":
+        lens[:, run] = 0
+    elif kind == "boundary":
+        lens[::2, -1] = (-lens[::2, :-1].sum(axis=1)) % 32
+    codes = rng.integers(0, 1 << 32, size=lens.shape, dtype=np.uint64) & (
+        (np.uint64(1) << lens.astype(np.uint64)) - np.uint64(1)
+    )
+    c = torch.from_numpy(codes.astype(np.uint32).view(np.int32)).to(dev)
+    l = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    got = cuda_encode.pack_lanes(c, l)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_encode.pack_lanes_plain(c, l))
 
 
 def _slice_inputs():

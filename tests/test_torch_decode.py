@@ -25,6 +25,9 @@ from huffman_tpu_torch.ops.cuda_gather import gather_u16_pairs
 from huffman_tpu_torch.ops.tables import tables_from_codebook
 
 CPU = torch.device("cpu")
+PREFIX_BITS = 12  # csrc/decode.cu's kPrefixBits
+DECODE_CASES = [(1, 12), (2, 12), (300, 12), (1024, 12), (1025, 12), (4000, 12),
+                (1, 18), (2, 18), (300, 18), (1024, 18), (1025, 18), (4000, 18), (30000, 18)]
 
 
 def _setup(seed, n_real, B, alphabet_size, max_len):
@@ -101,12 +104,7 @@ def _jax_decode(cb, streams, n_real, B, translate):
     return np.asarray(out)
 
 
-@pytest.mark.parametrize(
-    "alphabet,max_len",
-    [(1, 12), (2, 12), (300, 12), (1024, 12), (1025, 12), (4000, 12),
-     (1, 18), (2, 18), (300, 18), (1024, 18), (1025, 18), (4000, 18),
-     (30000, 18)],
-)
+@pytest.mark.parametrize("alphabet,max_len", DECODE_CASES)
 def test_decode_groups_matches_jax_and_twin(alphabet, max_len):
     B, n_real = 32, 1500
     symbols, cb, streams = _setup(alphabet + max_len, n_real, B, alphabet, max_len)
@@ -163,6 +161,56 @@ def test_unpacked_decode_matches_jax(alphabet, max_len):
     np.testing.assert_array_equal(got.numpy(), want)
     dec = got.numpy().reshape(ngroups, B, GROUP_LANES).transpose(0, 2, 1).reshape(-1)
     np.testing.assert_array_equal(dec[: symbols.size], symbols)
+
+
+def _table_length(lj, min_len, max_len, peek):
+    """K1's length search (csrc/decode.cu) in numpy: the boundaries
+    lj[min_len-1 : max_len-1] sorted; per 12-bit prefix of peek, the count
+    of boundaries <= its first value and whether one lies inside it; a
+    split prefix walks the sorted boundaries on from that count."""
+    bounds = np.sort(lj[min_len - 1 : max_len - 1].astype(np.uint64))
+    n = bounds.size
+    shift = 32 - PREFIX_BITS
+    first = np.arange(1 << PREFIX_BITS, dtype=np.uint64) << np.uint64(shift)
+    c_lo = (bounds[None, :] <= first[:, None]).sum(axis=1)
+    c_hi = (bounds[None, :] <= (first | np.uint64((1 << shift) - 1))[:, None]).sum(axis=1)
+    p = (peek >> np.uint64(shift)).astype(np.int64)
+    c, split = c_lo[p], (c_hi != c_lo)[p]
+    for _ in range(n):
+        c = c + (split & (c < n) & (bounds[np.minimum(c, max(n - 1, 0))] <= peek) if n else 0)
+    return min_len + c
+
+
+def _length_cases():
+    for alphabet, max_len in DECODE_CASES:
+        yield f"{alphabet}-{max_len}", lambda a=alphabet, m=max_len: _setup(a + m, 1500, 32, a, m)[1]
+    fib = [1, 1]
+    while len(fib) < 30:
+        fib.append(fib[-1] + fib[-2])
+    freqs = np.zeros(MAX_SYMBOLS, np.int64)
+    freqs[:30] = fib
+    yield "fibonacci-29bit", lambda: Codebook.from_lengths(package_merge_lengths(freqs, 32))
+
+
+@pytest.mark.parametrize("case", [*(name for name, _ in _length_cases()), "unsorted boundaries"])
+def test_prefix_table_length_is_the_compare_count(case):
+    """The prefix-table search gives min_len + #(peek >= lj[i]) for every
+    peek tried: each prefix's first and last value, every boundary and its
+    neighbours, and random values; for unsorted boundaries as well."""
+    rng = np.random.default_rng(len(case))
+    if case == "unsorted boundaries":
+        lj, min_len, max_len = rng.integers(0, 1 << 32, 32, dtype=np.uint64), 1, 32
+    else:
+        t = tables_from_codebook(dict(_length_cases())[case](), CPU)
+        lj, min_len, max_len = t.lj_limit.numpy().view(np.uint32).astype(np.uint64), t.min_len, t.max_len
+    shift = 32 - PREFIX_BITS
+    first = np.arange(1 << PREFIX_BITS, dtype=np.uint64) << np.uint64(shift)
+    near = lj[:, None].astype(np.int64) + np.arange(-1, 2)[None, :]
+    peek = np.concatenate([first, first + np.uint64((1 << shift) - 1),
+                           np.clip(near, 0, 0xFFFFFFFF).astype(np.uint64).reshape(-1),
+                           rng.integers(0, 1 << 32, 100_000, dtype=np.uint64)])
+    want = min_len + (peek[:, None] >= lj[None, min_len - 1 : max_len - 1]).sum(axis=1)
+    np.testing.assert_array_equal(_table_length(lj, min_len, max_len, peek), want)
 
 
 def test_decode_groups_rejects_odd_steps_and_wide_translate():

@@ -12,7 +12,8 @@ from huffman_tpu.codebook import Codebook, package_merge_lengths
 from huffman_tpu.constants import GROUP_LANES, MAX_SYMBOLS
 from huffman_tpu.container import interleave as il
 from huffman_tpu.ops import pallas_encode as pe
-from huffman_tpu_torch.ops.cuda_encode import pack_lanes, pack_streams
+from huffman_tpu_torch.ops.cuda_encode import pack_lanes, pack_lanes_plain, pack_streams
+from huffman_tpu_torch.u32 import narrow, shl, widen
 
 N_LANES = 2 * GROUP_LANES
 
@@ -56,6 +57,63 @@ def test_pack_lanes_handles_32_bit_codes():
              & ((np.uint64(1) << lens.astype(np.uint64)) - np.uint64(1))).astype(np.uint32)
     want = np.asarray(pe._staging(jnp.asarray(codes), jnp.asarray(lens), interpret=True))
     np.testing.assert_array_equal(pack_lanes(_t(codes), _t(lens)).numpy().view(np.uint32), want)
+
+
+def _pack_prefix_sum(codes: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """K4's arithmetic (csrc/pack.cu) as tensor ops: each code starts at
+    the exclusive cumsum of the lengths; its one or two parts (the serial
+    walk's shifts) add into the lane's words, disjoint bits under the
+    precondition code < 2**L; a step that fills its start word emits that
+    word; the final partial word is the word at the lane's bit total."""
+    c, L = widen(codes), lens.to(torch.int64)
+    n_lanes, B = c.shape
+    start = torch.cumsum(L, dim=1) - L
+    k, tot = start >> 5, (start & 31) + L
+    first = torch.where(tot <= 32, shl(c, (32 - tot) & 31), c >> ((tot - 32) & 31))
+    first = torch.where(L == 0, 0, first)
+    spill = torch.where(tot > 32, shl(c, (64 - tot) & 31), 0)
+    words = torch.zeros((n_lanes, B + 2), dtype=torch.int64)
+    words.scatter_add_(1, k, first)
+    words.scatter_add_(1, k + 1, spill)
+    staging = torch.empty((n_lanes, B + 1), dtype=torch.int64)
+    staging[:, :B] = torch.where(tot >= 32, words.gather(1, k), 0)
+    total = start[:, -1:] + L[:, -1:]
+    staging[:, B:] = torch.where((total & 31) > 0, words.gather(1, total >> 5), 0)
+    return narrow(staging)
+
+
+def _pack_case(kind, B, seed):
+    """(codes, lens) for GROUP_LANES lanes: random lengths 0..32 with
+    codes below 2**L, then a run of 32-bit codes, a run of L = 0, or every
+    other lane ending exactly on a word boundary."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 33, size=(GROUP_LANES, B)).astype(np.int64)
+    run = slice(B // 4, max(3 * B // 4, B // 4 + 1))
+    if kind == "runs32":
+        lens[:, run] = 32
+    elif kind == "runs0":
+        lens[:, run] = 0
+    elif kind == "boundary":
+        head = lens[::2, :-1].sum(axis=1)
+        lens[::2, -1] = (-head) % 32
+    codes = (rng.integers(0, 1 << 32, size=lens.shape, dtype=np.uint64)
+             & ((np.uint64(1) << lens.astype(np.uint64)) - np.uint64(1))).astype(np.uint32)
+    return codes, lens.astype(np.int32)
+
+
+@pytest.mark.parametrize("kind,B", [("mixed", 1), ("mixed", 2), ("mixed", 30), ("mixed", 64),
+                                    ("mixed", 513), ("runs32", 64), ("runs0", 64),
+                                    ("boundary", 30), ("boundary", 513)])
+def test_pack_prefix_sum_form_matches_plain_and_pallas(kind, B):
+    """The prefix-sum form the K4 kernel computes equals the serial walk of
+    pack_lanes_plain and the Pallas _staging, bit for bit."""
+    codes, lens = _pack_case(kind, B, B)
+    if kind == "boundary":
+        assert not (lens[::2].sum(axis=1) % 32).any()
+    got = _pack_prefix_sum(_t(codes), _t(lens))
+    np.testing.assert_array_equal(got.numpy(), pack_lanes_plain(_t(codes), _t(lens)).numpy())
+    want = np.asarray(pe._staging(jnp.asarray(codes), jnp.asarray(lens), interpret=True))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
 
 
 @pytest.mark.parametrize("seed,B,n_real", [(3, 16, 1500), (4, 32, 2048), (5, 8, 1)])
