@@ -15,6 +15,8 @@ Phases, each printing one line or a few:
          package-merge, rank-select gather, lane pack), wide30k (tier
          32768: canonical-rank gather with the rank stage) and a
          full-alphabet Zipf input (tier 65536: canonical rank by identity);
+       - the package-merge of the fused encode of the 29-bit Fibonacci
+         input at a 32-bit limit (tier 4096, 31 rounds);
        - the host-codebook compress route, silesia-like with a given
          codebook (the dense code gather);
        - decompress of silesia-like (rank-mode decode, rank -> symbol
@@ -32,7 +34,10 @@ Phases, each printing one line or a few:
      bytes over 3.35 TB/s and its integer operations over 16.7 Tops/s) and,
      where one PyTorch call computes the same function, that call's time.
      A kernel timed at several shapes is recorded by its slowest, with every
-     shape under ``variants``;
+     shape under ``variants``. Package-merge's chain of dependent
+     launches is the count of device kernels ``torch.profiler`` records
+     in one call of each shape, read after phase 3 (``profiler_kernels``;
+     the smoke fails if it records none);
   3. the paths, each with the launch counts set to 0 just before it and
      read just after: the fused route (compress + decompress of the three
      32 MiB inputs and the 8 MiB one), the host-codebook route (32 MiB
@@ -124,6 +129,27 @@ def check_no_spills(log: str, kernels: tuple[str, ...]) -> None:
     if missing := set(kernels) - seen:
         raise AssertionError(f"ptxas: no properties line for {sorted(missing)}")
     print(f"ptxas: no spills in {', '.join(kernels)}")
+
+
+def device_kernels(fn) -> int:
+    """Device kernels ``torch.profiler`` records in one call of ``fn``."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # Device-side events only: the CPU ops that launched them are counted apart.
+    return sum(e.count for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
+
+
+def fibonacci_raw(fib: bytes, B: int = 512) -> tuple[torch.Tensor, int]:
+    """The Fibonacci input as the fused encode takes it: zero-padded to
+    whole groups of 1024 lanes of B pairs, and its pair count."""
+    n_pairs = len(fib) // 2
+    n_lanes = -(-n_pairs // (B * 1024)) * 1024
+    raw = torch.zeros(n_lanes * B * 2, dtype=torch.uint8)
+    raw[: len(fib)] = torch.frombuffer(bytearray(fib), dtype=torch.uint8)
+    return raw, n_pairs
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -274,7 +300,8 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
-    check_no_spills(log, ("decode_groups_kernel", "pack_lanes_kernel"))
+    check_no_spills(log, ("decode_groups_kernel", "pack_lanes_kernel", "leaf_tile_sort",
+                          "leaf_merge_pass", "leaves_init", "pm_round", "pm_count", "pm_one_block"))
 
     silesia = silesia_like(BIG, seed=7).tobytes()
     wide = wide30k(BIG).tobytes()
@@ -302,8 +329,11 @@ def main() -> int:
     assert not dec["decode_groups"][4] and dec_tr["decode_groups"][4], "decode modes"
     assert not enc_wide["gather_rank_canonical"][-1] and enc_full["gather_rank_canonical"][-1], \
         "canonical gather modes"
-    K = [a["package_merge"][3] for a in (enc, enc_wide, enc_full)]
-    assert K == [4096, 32768, 65536], f"tiers {K}"
+    raw_fib, fib_pairs = fibonacci_raw(fib)
+    _, enc_fib = capture([(device_codebook, "package_merge")], fused.encode_device_bytes,
+                         raw_fib.to(dev), fib_pairs, 512, 32)
+    K = [a["package_merge"][3] for a in (enc, enc_wide, enc_full, enc_fib)]
+    assert K == [4096, 32768, 65536, 4096] and enc_fib["package_merge"][2] == 32, f"tiers {K}"
     # K10's and K5's inputs, as the deposit path and the unpacked decode
     # hand them to their kernels.
     deposit = {name: capture([(cuda_encode, "deposit_streams")], cuda_encode.pack_streams_kernel_deposit,
@@ -325,6 +355,8 @@ def main() -> int:
         ("package_merge", "K=4096", dc.package_merge, dc.package_merge_plain, enc["package_merge"], 10, 2),
         ("package_merge", "K=32768", dc.package_merge, dc.package_merge_plain, enc_wide["package_merge"], 10, 2),
         ("package_merge", "K=65536", dc.package_merge, dc.package_merge_plain, enc_full["package_merge"], 10, 2),
+        ("package_merge", "K=4096, max_len 32, fibonacci", dc.package_merge, dc.package_merge_plain,
+         enc_fib["package_merge"], 10, 2),
         ("gather_rank_select", "silesia", cg.gather_rank_select, cg.gather_rank_select_plain,
          enc["gather_rank_select"], 20, 2),
         ("gather_rank_canonical", "rank stage, wide30k", cg.gather_rank_canonical,
@@ -347,7 +379,7 @@ def main() -> int:
         ("gather_u16", "full", cg.gather_u16, cg.gather_u16_plain, unpacked["full"], 20, 3),
     ]
     pack_args = {"silesia": enc["pack_streams"], "full": enc_full["pack_streams"]}
-    records = {}
+    records, k7_args = {}, {}
     for name, variant, kernel, plain, args, iters, plain_iters in checks:
         got, want = kernel(*args), plain(*args)
         torch.cuda.synchronize()
@@ -362,12 +394,10 @@ def main() -> int:
         rec = {"variant": variant, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
         if name == "package_merge":
-            # Its time is set by a chain of dependent launches, which the
-            # byte and operation bound does not see.
-            n_sym, max_len = args[0].numel(), args[2]
-            tile = min(n_sym, 2048)
-            chain = 3 + (n_sym // tile).bit_length() - 1 + max_len - 1
-            lib_txt += f" dependent launches {chain}"
+            # Its time is set by a chain of dependent launches (or a
+            # block's barriers), which the byte and operation bound does
+            # not see: the profiler counts them at the end.
+            k7_args[variant] = (rec, args)
         if name == "deposit_streams":
             # The tensor-op assembly the compress routes use, and the whole
             # deposit path, on the same inputs: data for a later reroute.
@@ -382,7 +412,7 @@ def main() -> int:
         if err != 0:
             raise AssertionError(f"{name} [{variant}]: kernel differs from its plain version")
         records.setdefault(name, []).append(rec)
-    del enc_host, dec, dec_tr, dec_160, checks, deposit, unpacked
+    del enc_host, dec, dec_tr, dec_160, checks, deposit, unpacked, enc_fib
 
     # Phase 3: the paths, counting launches.
     def drive(name, data, **kwargs):
@@ -444,12 +474,7 @@ def main() -> int:
     }))
 
     def fused_at_32_bits():
-        B = 512
-        n_pairs = len(fib) // 2
-        n_lanes = -(-n_pairs // (B * 1024)) * 1024
-        raw = torch.zeros(n_lanes * B * 2, dtype=torch.uint8)
-        raw[: len(fib)] = torch.frombuffer(bytearray(fib), dtype=torch.uint8)
-        r = fused.encode_device_bytes(raw.to(dev), n_pairs, B, 32)
+        r = fused.encode_device_bytes(raw_fib.to(dev), fib_pairs, 512, 32)
         want = package_merge_lengths(np.bincount(np.frombuffer(fib, "<u2"), minlength=65536), 32)
         if not np.array_equal(r["lengths"].cpu().numpy(), want):
             raise AssertionError("fused encode at max_len 32: lengths differ from package-merge")
@@ -524,6 +549,15 @@ def main() -> int:
               f"{t_rt:.3f} s ({card})")
 
     path_counts.append(run_path("ops route", OPS_PATH, {}, extra=ops_route))
+
+    # Last, so that no timing runs after the profiler: the chain of
+    # dependent launches of one package-merge call, as device kernels.
+    for variant, (rec, args) in k7_args.items():
+        rec["profiler_kernels"] = seen = device_kernels(lambda: device_codebook.package_merge(*args))
+        print(f"package_merge [{variant}]: dependent launches in one call (torch.profiler "
+              f"device kernels) {seen} ({card})")
+        if seen == 0:
+            raise AssertionError(f"package_merge [{variant}]: the profiler saw no device kernel")
 
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

@@ -35,9 +35,14 @@ def package_merge(
     freqs: torch.Tensor, n: int, max_len: int, K: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``freqs``: (n_sym,) int32 dense histogram, n_sym a power of two up
-    to 65536; ``n``: its count of non-zero bins; ``K``: the alphabet cap, a
-    power of two <= n_sym. Returns (lengths_by_rank (K,), leaf_sym (K,))
-    int32; exact while n <= K."""
+    to 65536, every weight below 2**30; ``n``: its count of bins with
+    f > 0; ``K``: the alphabet cap, a power of two <= n_sym. Returns
+    (lengths_by_rank (K,), leaf_sym (K,)) int32; exact while n <= K.
+
+    On the card the C entry point picks its route from the arguments:
+    for K <= 4096 and n <= K one kernel of one block does the whole
+    function (the tier of every input with at most 4096 distinct pairs);
+    otherwise the sort, merge and round launches run, then the count."""
     dev = freqs.device
     kernels.check(freqs, torch.int32, dev, "freqs")
     n_sym = freqs.numel()
@@ -48,22 +53,33 @@ def package_merge(
     if not 1 <= max_len <= MAX_CODE_LEN:
         raise ValueError(f"max_len={max_len} outside [1, {MAX_CODE_LEN}]")
     if dev.type == "cuda":
-        lengths = torch.empty(K, dtype=torch.int32, device=dev)
-        leaf_sym = torch.empty(K, dtype=torch.int32, device=dev)
-        keys = torch.empty((2, n_sym), dtype=torch.int64, device=dev)
-        leaf_keys = torch.empty(K, dtype=torch.int32, device=dev)
-        lists = torch.empty((2, 2 * K), dtype=torch.int32, device=dev)
-        flags = torch.empty((max(max_len - 1, 1), 2 * K), dtype=torch.uint8, device=dev)
+        out = torch.empty((2, K), dtype=torch.int32, device=dev)
+        scratch, pointers = kernel_scratch(n_sym, K, max_len, dev)
         kernels.launch(
-            "package_merge", freqs.data_ptr(), n_sym, n, K, max_len,
-            keys[0].data_ptr(), keys[1].data_ptr(), leaf_keys.data_ptr(),
-            lists[0].data_ptr(), lists[1].data_ptr(), flags.data_ptr(),
-            lengths.data_ptr(), leaf_sym.data_ptr(),
+            "package_merge", freqs.data_ptr(), n_sym, n, K, max_len, *pointers,
+            out.data_ptr(), out.data_ptr() + 4 * K,
         )
+        lengths, leaf_sym = out
         return lengths, leaf_sym
     if dev.type == "cpu":
         return package_merge_plain(freqs, n, max_len, K)
     raise ValueError(f"package_merge: unsupported device {dev}")
+
+
+def kernel_scratch(
+    n_sym: int, K: int, max_len: int, dev: torch.device
+) -> tuple[torch.Tensor, list[int]]:
+    """One device buffer holding the kernel's scratch, and the pointers of
+    its parts in the C entry point's order: the sort keys (2 x (n_sym,)
+    u64), the leaf keys (K,) u32, the two lists (2 x (2K,) u32) and the
+    rounds' leaf positions ((max_len - 1) x K int32). Keep the buffer
+    alive until the launch returns."""
+    sizes = (8 * n_sym, 8 * n_sym, 4 * K, 8 * K, 8 * K, 4 * K * max(max_len - 1, 1))
+    offsets = [0]
+    for size in sizes[:-1]:
+        offsets.append(offsets[-1] + -(-size // 256) * 256)
+    scratch = torch.empty(offsets[-1] + sizes[-1], dtype=torch.uint8, device=dev)
+    return scratch, [scratch.data_ptr() + o for o in offsets]
 
 
 def package_merge_plain(

@@ -1,25 +1,35 @@
 #!/usr/bin/env python3
-"""A/B times of the port's K1 (decode_groups) and K4 (pack_lanes) kernels
-on one CUDA card, and a clock64() split of K1's step.
+"""A/B times of the port's K1 (decode_groups), K4 (pack_lanes) and K7
+(package_merge) kernels on one CUDA card, and clock64() splits of K1's
+step and of K7's one-block kernel.
 
     python3 scripts/torch_kernel_ab.py [--clock] [NAME=SOURCE.cu ...]
 
 Captures the kernels' arguments from the main-path calls at 32 MiB (the
 silesia-like rank-mode decode, the 8 MiB 300-symbol translate-mode decode,
-the rank-mode decode repeated to 160 groups, and the silesia-like and
-full-alphabet lane packs). Each NAME=SOURCE.cu is another version of
-csrc/decode.cu or csrc/pack.cu with the same C entry point (for example a
-parent commit's, unpacked with ``git archive``); it is built into its own
-library under build/kernel_ab/, must give the package kernel's output bit
-for bit, and is timed with it by CUDA events in turns: the given versions,
-the package's, the package's again, the given versions in reverse.
+the rank-mode decode repeated to 160 groups, the silesia-like and
+full-alphabet lane packs, and the package-merge of the silesia-like,
+wide30k and full-alphabet fused compresses and of the fused encode of the
+29-bit Fibonacci input at a 32-bit limit). Each NAME=SOURCE.cu is another
+version of csrc/decode.cu, csrc/pack.cu or csrc/package_merge.cu with the
+same C entry point (for example a parent commit's, unpacked with ``git
+archive``); it is built into its own library under build/kernel_ab/, must
+give the package kernel's output bit for bit, and is timed with it by
+CUDA events in turns: the given versions, the package's, the package's
+again, the given versions in reverse. Every version, the package's
+included, is called through ctypes on the same preallocated tensors.
 
-``--clock`` builds a copy of csrc/decode.cu with clock64() stamps between
-the phases of a step and prints, averaged over warps and steps, the cycles
-each phase takes: the decode (length, rank, symbol, shift, ballot), the
-wait for the ring's copies, the barrier, and the scan, refill and next
-copy; and the output store. The stamps cost time of their own, so the
-instrumented kernel's time is printed beside the split.
+``--clock`` builds copies of csrc/decode.cu and csrc/package_merge.cu
+with clock64() stamps. For K1 it prints, averaged over warps and steps,
+the cycles each phase of a step takes: the decode (length, rank, symbol,
+shift, ballot), the wait for the ring's copies, the barrier, and the
+scan, refill and next copy; and the output store. For K7's one-block
+kernel it prints the cycles thread 0 spends in each phase: the histogram
+sweep, the absent scan, the sort, the leaf keys and first packages, then,
+summed over the rounds, the merge-path search, the merge (with the next
+round's packages) and the round barrier, and last the count and the
+lengths. The stamps cost time of their own, so each instrumented
+kernel's time is printed beside its split.
 """
 
 from __future__ import annotations
@@ -38,14 +48,16 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 import huffman_tpu_torch as ht  # noqa: E402
 from huffman_tpu_torch.container import block_format as bf  # noqa: E402
-from huffman_tpu_torch.corpus import silesia_like, zipf_pairs  # noqa: E402
-from huffman_tpu_torch.ops import cuda_decode, cuda_encode  # noqa: E402
+from huffman_tpu_torch.corpus import fibonacci_pairs, silesia_like, wide30k, zipf_pairs  # noqa: E402
+from huffman_tpu_torch.ops import cuda_encode, device_codebook, fused  # noqa: E402
 from huffman_tpu_torch.runtime import kernels  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_ab"
 P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 DECODE_ARGS = [P, I64, P, I, P, P, P, I, I, I, I, I, P]
 PACK_ARGS = [P, P, I64, I, P]
+SYMBOLS = {"decode_groups": "htpu_decode_groups", "pack_lanes": "htpu_pack_lanes",
+           "package_merge": "htpu_package_merge"}
 STAMP = "#define STAMP(i) { const long long now_ = clock64(); acc[i] += now_ - prev; prev = now_; }"
 CLOCK_EDITS = [  # (text in csrc/decode.cu, its form in the clock64() copy)
     ("uint32_t* __restrict__ out) {",
@@ -67,11 +79,33 @@ CLOCK_EDITS = [  # (text in csrc/decode.cu, its form in the clock64() copy)
 ]
 
 
-def clock_source() -> str:
-    src = (kernels.CSRC / "decode.cu").read_text()
-    for text, stamped in CLOCK_EDITS:
+PM_CLOCK_EDITS = [  # (text in csrc/package_merge.cu, its form in the clock64() copy)
+    ("             int32_t* __restrict__ leaf_sym) {\n",
+     "             int32_t* __restrict__ leaf_sym, long long* dbg) {\n  long long acc[8] = {};\n"
+     "  long long prev_ = clock64();\n" + STAMP.replace("prev", "prev_") + "\n"),
+    ("  // The first K - n absent symbols", "  STAMP(0)\n  // The first K - n absent symbols"),
+    ("  // Merge sort of the n_leaf keys", "  STAMP(1)\n  // Merge sort of the n_leaf keys"),
+    ("  }\n  // Ranks n_leaf .. K - 1", "  }\n  STAMP(2)\n  // Ranks n_leaf .. K - 1"),
+    ("  __syncthreads();\n\n  // 2. Rounds.", "  __syncthreads();\n  STAMP(3)\n\n  // 2. Rounds."),
+    ("      int i = lo, j = d0 - lo;", "      STAMP(4)\n      int i = lo, j = d0 - lo;"),
+    ("    __syncthreads();\n    uint32_t* t = pk;", "    STAMP(5)\n    __syncthreads();\n    STAMP(6)\n    uint32_t* t = pk;"),
+    ("  write_lengths(m_level, K, max_len, lengths);\n}\n\nint blocks_for",
+     "  write_lengths(m_level, K, max_len, lengths);\n  STAMP(7)\n"
+     "  if (threadIdx.x == 0) for (int i = 0; i < 8; ++i) dbg[i] = acc[i];\n}\n\nint blocks_for"),
+    ("void* positions, void* lengths, void* leaf_sym,\n                                  void* stream) {",
+     "void* positions, void* lengths, void* leaf_sym,\n                                  void* dbg, void* stream) {"),
+    ("(int32_t*)leaf_sym);\n    return", "(int32_t*)leaf_sym, (long long*)dbg);\n    return"),
+    ('extern "C" int htpu_package_merge', 'extern "C" int clk_package_merge'),
+]
+PM_CLOCK_PHASES = ("sweep", "absent scan", "sort", "leaf keys + first packages",
+                   "merge-path search", "merge + packages", "round barrier", "count + lengths")
+
+
+def clock_source(name: str, edits) -> str:
+    src = (kernels.CSRC / name).read_text()
+    for text, stamped in edits:
         if text not in src:
-            raise RuntimeError(f"csrc/decode.cu no longer holds {text!r}")
+            raise RuntimeError(f"csrc/{name} no longer holds {text!r}")
         src = src.replace(text, stamped, 1)
     return src
 
@@ -98,7 +132,17 @@ def runner(lib: ctypes.CDLL, kind: str, args, dbg=None):
     """A no-argument call of ``lib``'s kernel on ``args`` into its own
     output tensor; ``dbg`` adds the clock copy's stamp buffer."""
     stream = torch.cuda.current_stream().cuda_stream
-    if kind == "decode_groups":
+    keep = None  # scratch the call writes, alive as long as the call
+    if kind == "package_merge":
+        freqs, n, max_len, K = args
+        out = torch.empty((2, K), dtype=torch.int32, device=freqs.device)
+        keep, pointers = device_codebook.kernel_scratch(freqs.numel(), K, max_len, freqs.device)
+        fn = lib.clk_package_merge if dbg is not None else lib.htpu_package_merge
+        fn.argtypes = [*kernels.KERNELS["package_merge"][1], *([P] if dbg is not None else []), P]
+        extra = [dbg.data_ptr()] if dbg is not None else []
+        call = lambda: fn(freqs.data_ptr(), freqs.numel(), n, K, max_len, *pointers, out.data_ptr(),
+                          out.data_ptr() + 4 * K, *extra, stream)
+    elif kind == "decode_groups":
         s, n, t, B, tr = args
         out = torch.empty((s.shape[0], B // 2, 8, 128), dtype=torch.int32, device=s.device)
         fn = lib.clk_decode_groups if dbg is not None else lib.htpu_decode_groups
@@ -113,7 +157,7 @@ def runner(lib: ctypes.CDLL, kind: str, args, dbg=None):
         lib.htpu_pack_lanes.argtypes = [*PACK_ARGS, P]
         call = lambda: lib.htpu_pack_lanes(c.data_ptr(), l.data_ptr(), c.shape[0], c.shape[1], out.data_ptr(), stream)
 
-    def run():
+    def run(_keep=keep):
         if call() != 0:
             raise RuntimeError(f"{kind}: launch failed")
         return out
@@ -131,15 +175,20 @@ def main() -> int:
     sources = {name: Path(src) for name, src in given.items()}
     if clock:
         OUT.mkdir(parents=True, exist_ok=True)
-        clk = OUT / "decode_clock.cu"
-        clk.write_text(clock_source())
-        sources["clock"] = clk
+        for name, src, edits in (("clock", "decode.cu", CLOCK_EDITS), ("pm_clock", "package_merge.cu", PM_CLOCK_EDITS)):
+            (OUT / f"{name}.cu").write_text(clock_source(src, edits))
+            sources[name] = OUT / f"{name}.cu"
     libs = build(sources)
+    libs["package"] = kernels.load()
     dev = torch.device("cuda")
     sil = silesia_like(cs.BIG, seed=7).tobytes()
-    blob, enc = cs.capture([(cuda_encode, "pack_lanes")], ht.compress, sil, dev)
+    enc_calls = [(cuda_encode, "pack_lanes"), (device_codebook, "package_merge")]
+    blob, enc = cs.capture(enc_calls, ht.compress, sil, dev)
     full = zipf_pairs(cs.BIG, 65536, np.random.default_rng(11)).tobytes()
-    _, enc_full = cs.capture([(cuda_encode, "pack_lanes")], ht.compress, full, dev)
+    _, enc_full = cs.capture(enc_calls, ht.compress, full, dev)
+    _, enc_wide = cs.capture(enc_calls, ht.compress, wide30k(cs.BIG).tobytes(), dev)
+    raw_fib, fib_pairs = cs.fibonacci_raw(fibonacci_pairs().tobytes())
+    _, enc_fib = cs.capture(enc_calls, fused.encode_device_bytes, raw_fib.to(dev), fib_pairs, 512, 32)
     _, dec = cs.capture([(bf, "decode_groups")], ht.decompress, blob, dev)
     small = zipf_pairs(cs.TRANSLATE_BYTES, 300, np.random.default_rng(5)).tobytes()
     _, dec_tr = cs.capture([(bf, "decode_groups")], ht.decompress, ht.compress(small, dev), dev)
@@ -148,16 +197,21 @@ def main() -> int:
              ("decode_groups", "translate mode", dec_tr["decode_groups"]),
              ("decode_groups", "rank mode, 160 groups", (s.repeat(5, 1), n.repeat(5), *rest)),
              ("pack_lanes", "silesia", enc["pack_lanes"]),
-             ("pack_lanes", "full", enc_full["pack_lanes"])]
-    package = {"decode_groups": cuda_decode.decode_groups, "pack_lanes": cuda_encode.pack_lanes}
+             ("pack_lanes", "full", enc_full["pack_lanes"]),
+             ("package_merge", "K=4096 silesia", enc["package_merge"]),
+             ("package_merge", "K=4096 max_len 32 fibonacci", enc_fib["package_merge"]),
+             ("package_merge", "K=32768 wide30k", enc_wide["package_merge"]),
+             ("package_merge", "K=65536 full", enc_full["package_merge"])]
     for kind, variant, args in cases:
-        fns = {name: runner(libs[name], kind, args) for name in given
-               if hasattr(libs[name], "htpu_decode_groups" if kind == "decode_groups" else "htpu_pack_lanes")}
-        want = package[kind](*args)
+        package = runner(libs["package"], kind, args)
+        want = package().clone()
+        if kind == "package_merge" and not torch.equal(want, torch.stack(device_codebook.package_merge_plain(*args))):
+            raise AssertionError(f"the package's kernel [{kind}, {variant}] differs from its plain version")
+        fns = {name: runner(libs[name], kind, args) for name in given if hasattr(libs[name], SYMBOLS[kind])}
         for name, fn in fns.items():
             if not torch.equal(fn(), want):
                 raise AssertionError(f"{name} [{kind}, {variant}] differs from the package's kernel")
-        fns["package"] = lambda: package[kind](*args)
+        fns["package"] = package
         order = [*fns, *reversed(fns)]
         times = {name: [] for name in fns}
         for name in order:
@@ -170,7 +224,7 @@ def main() -> int:
             dbg = torch.zeros((ng, 32, 8), dtype=torch.int64, device=dev)
             fn = runner(libs["clock"], "decode_groups", args, dbg)
             ms = cs.cuda_ms(fn, 3)
-            if not torch.equal(fn(), cuda_decode.decode_groups(*args)):
+            if not torch.equal(fn(), runner(libs["package"], "decode_groups", args)()):
                 raise AssertionError("the clock copy's output differs from the package's kernel")
             d = dbg[:, :, :6].double()
             per = d[:, :, 1:5].sum(dim=(0, 1)) / (ng * 32 * B)
@@ -178,6 +232,19 @@ def main() -> int:
                   f"instrumented kernel {ms:.4f} ms; cycles a warp: setup {d[:, :, 0].mean():.1f}; a step: "
                   f"decode {per[0]:.1f}, copy wait {per[1]:.1f}, barrier {per[2]:.1f}, scan+refill+copy "
                   f"{per[3]:.1f}, store {d[:, :, 5].mean() / B:.1f} ({card})")
+        for label, args in (("silesia", enc["package_merge"]), ("fibonacci, max_len 32", enc_fib["package_merge"])):
+            dbg = torch.zeros(8, dtype=torch.int64, device=dev)
+            fn = runner(libs["pm_clock"], "package_merge", args, dbg)
+            ms = cs.cuda_ms(fn, 10)
+            if not torch.equal(fn(), runner(libs["package"], "package_merge", args)()):
+                raise AssertionError("the clock copy's output differs from the package's kernel")
+            fn()
+            torch.cuda.synchronize()
+            cycles = dict(zip(PM_CLOCK_PHASES, dbg.tolist()))
+            print(f"clock package_merge one block [{label}]: K {args[3]}, n {args[1]}, max_len {args[2]}, "
+                  f"instrumented kernel {ms:.4f} ms; cycles (thread 0; the rounds' summed over "
+                  f"{args[2] - 1} rounds): "
+                  + ", ".join(f"{k} {v}" for k, v in cycles.items()) + f" ({card})")
     r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
                        capture_output=True, text=True)
     print(f"SM clock, max: {r.stdout.strip()}")

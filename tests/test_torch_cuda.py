@@ -269,25 +269,33 @@ def test_histogram_kernel_matches_plain(dev, n, n_unique, skew):
     assert torch.equal(got.cpu(), torch.from_numpy(np.bincount(sym, minlength=MAX_SYMBOLS).astype(np.int32)))
 
 
-@pytest.mark.parametrize("n_unique", [0, 1, 2, 4096, 4097, 16384, 32769, 65536])
-@pytest.mark.parametrize("max_len", [16, 26])
-def test_package_merge_kernel_matches_plain(dev, n_unique, max_len):
+@pytest.mark.parametrize("n_unique,max_len,n_sym,K", [
+    (n, max_len, MAX_SYMBOLS, None) for n in (0, 1, 2, 4096, 4097, 16384, 32769, 65536) for max_len in (16, 26)
+] + [
+    (4095, 18, MAX_SYMBOLS, None), (4096, 32, MAX_SYMBOLS, None),  # one block: its last tier, 31 rounds
+    (65536, 32, MAX_SYMBOLS, None),  # the launch chain at 31 rounds
+    (256, 16, 256, 256), (1000, 18, 1024, 1024),  # one block at K = n_sym
+    (500, 18, 512, 512), (2000, 18, MAX_SYMBOLS, 2048),  # one block, 1 and 4 outputs a thread
+    (5000, 18, MAX_SYMBOLS, 4096),  # n > K: the launch chain at K = 4096
+])
+def test_package_merge_kernel_matches_plain(dev, n_unique, max_len, n_sym, K):
     rng = np.random.default_rng(n_unique + max_len)
-    freqs = np.zeros(MAX_SYMBOLS, np.int32)
-    freqs[rng.choice(MAX_SYMBOLS, n_unique, replace=False)] = rng.integers(1, 1 << 12, n_unique)  # sum < 2**30
+    freqs = np.zeros(n_sym, np.int32)
+    freqs[rng.choice(n_sym, n_unique, replace=False)] = rng.integers(1, 1 << 12, n_unique)  # sum < 2**30
     if 40 <= n_unique:  # a Fibonacci head: the length limit binds
         fib = [1, 1]
         while len(fib) < 30:
             fib.append(fib[-1] + fib[-2])
         freqs[np.flatnonzero(freqs)[:30]] = fib
     f = torch.from_numpy(freqs).to(dev)
-    K = fused.tier_for(max(n_unique, 1))
+    K = K or fused.tier_for(max(n_unique, 1))
     got = device_codebook.package_merge(f, n_unique, max_len, K)
     want = device_codebook.package_merge_plain(f, n_unique, max_len, K)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    lengths = device_codebook.device_code_lengths(f, max_len, K, n_unique)
-    np.testing.assert_array_equal(lengths.cpu().numpy(), package_merge_lengths(freqs, max_len))
+    if n_sym == MAX_SYMBOLS and n_unique <= K:
+        lengths = device_codebook.device_code_lengths(f, max_len, K, n_unique)
+        np.testing.assert_array_equal(lengths.cpu().numpy(), package_merge_lengths(freqs, max_len))
 
 
 @pytest.mark.parametrize("n_unique", [1, 4096, 4097, 16384, 32769, 65536])
