@@ -24,6 +24,9 @@ Phases, each printing one line or a few:
          the rank-mode decode again with its streams repeated five times
          along the groups (160 groups: more blocks than the card's 132
          SMs);
+       - the histogram again on a view of the silesia-like symbols 2 bytes
+         past a 16-byte boundary, with n_valid % 8 == 3 (its unaligned
+         head and its tail);
        - the lane pack at the full-alphabet shape as well as silesia-like;
        - the in-kernel deposit (K10) on the lane-pack and stream-assembly
          arguments of the silesia-like and full-alphabet compresses, with
@@ -221,9 +224,9 @@ def work(name: str, args, out) -> tuple[int, int]:
     if name == "gather_u16":
         return nbytes(*tensors, *outs), 3 * args[0].numel()
     if name == "deposit_streams":
-        # per lane and step: the fire bit, the warp ballot and popcount, a
-        # 5-round shuffle scan of the warp totals, the slot and the carries
-        return nbytes(*tensors, *outs), 25 * args[0].shape[0] * (args[0].shape[1] - 1)
+        # per lane and step: the fire bit, the counting ballot, and in the
+        # walk the ballot, the step base, the rank, the slot and the carries
+        return nbytes(*tensors, *outs), 15 * args[0].shape[0] * (args[0].shape[1] - 1)
     if name == "decode_groups":
         streams, n_real, tables, n_steps, translate = args
         ops = 40 * streams.shape[0] * 1024 * n_steps
@@ -301,7 +304,8 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
     check_no_spills(log, ("decode_groups_kernel", "pack_lanes_kernel", "leaf_tile_sort",
-                          "leaf_merge_pass", "leaves_init", "pm_round", "pm_count", "pm_one_block"))
+                          "leaf_merge_pass", "leaves_init", "pm_round", "pm_count", "pm_one_block",
+                          "deposit_streams_kernel", "histogram_kernel"))
 
     silesia = silesia_like(BIG, seed=7).tobytes()
     wide = wide30k(BIG).tobytes()
@@ -348,10 +352,15 @@ def main() -> int:
     streams, n_real, *rest = dec["decode_groups"]
     dec_160 = (streams.repeat(5, 1), n_real.repeat(5), *rest)
     cg, ce, cd, ch, dc = cuda_gather, cuda_encode, cuda_decode, cuda_hist, device_codebook
+    # K6 on a view 2 bytes past a 16-byte boundary, n_valid % 8 == 3: the
+    # kernel's unaligned head and its tail.
+    sym, n_valid = enc["histogram"]
+    hist_odd = (sym.reshape(-1)[1:], n_valid - 5)
 
     checks = [  # (record name, variant, kernel, plain, args, iters, plain iters)
         ("histogram", "silesia", ch.histogram, ch.histogram_plain, enc["histogram"], 20, 3),
         ("histogram", "full", ch.histogram, ch.histogram_plain, enc_full["histogram"], 20, 3),
+        ("histogram", "silesia, odd offset and length", ch.histogram, ch.histogram_plain, hist_odd, 20, 3),
         ("package_merge", "K=4096", dc.package_merge, dc.package_merge_plain, enc["package_merge"], 10, 2),
         ("package_merge", "K=32768", dc.package_merge, dc.package_merge_plain, enc_wide["package_merge"], 10, 2),
         ("package_merge", "K=65536", dc.package_merge, dc.package_merge_plain, enc_full["package_merge"], 10, 2),
@@ -412,7 +421,7 @@ def main() -> int:
         if err != 0:
             raise AssertionError(f"{name} [{variant}]: kernel differs from its plain version")
         records.setdefault(name, []).append(rec)
-    del enc_host, dec, dec_tr, dec_160, checks, deposit, unpacked, enc_fib
+    del enc_host, dec, dec_tr, dec_160, checks, deposit, unpacked, enc_fib, hist_odd
 
     # Phase 3: the paths, counting launches.
     def drive(name, data, **kwargs):

@@ -14,7 +14,9 @@ the interleaved group streams from it, as the JAX package has two:
 * ``pack_streams_kernel_deposit``, counterpart of the function of that
   name: the fire bits packed 32 steps to a word, then ``deposit_streams``
   (K10, ``csrc/deposit.cu``; counterpart of ``deposit_streams_pallas``),
-  a backward walk that stores every word in its stream slot.
+  which stores every word in its stream slot: blocks walk runs of steps
+  backward on their own, from slot bases that are suffix sums of the fire
+  counts.
 
 ``pack_blocks`` (counterpart of ``pack_blocks_pallas``) scatters the
 staging into per-block ``(nblocks, W)`` slabs: the v1 container's payload.

@@ -1,35 +1,44 @@
 #!/usr/bin/env python3
-"""A/B times of the port's K1 (decode_groups), K4 (pack_lanes) and K7
-(package_merge) kernels on one CUDA card, and clock64() splits of K1's
-step and of K7's one-block kernel.
+"""A/B times of the port's K1 (decode_groups), K4 (pack_lanes), K6
+(histogram), K7 (package_merge) and K10 (deposit_streams) kernels on one
+CUDA card, and clock64() splits of K1's step, K7's one-block kernel, K10
+and K6.
 
-    python3 scripts/torch_kernel_ab.py [--clock] [NAME=SOURCE.cu ...]
+    python3 scripts/torch_kernel_ab.py [--clock] [--variants] [NAME=SOURCE.cu ...]
 
 Captures the kernels' arguments from the main-path calls at 32 MiB (the
 silesia-like rank-mode decode, the 8 MiB 300-symbol translate-mode decode,
 the rank-mode decode repeated to 160 groups, the silesia-like and
-full-alphabet lane packs, and the package-merge of the silesia-like,
-wide30k and full-alphabet fused compresses and of the fused encode of the
-29-bit Fibonacci input at a 32-bit limit). Each NAME=SOURCE.cu is another
-version of csrc/decode.cu, csrc/pack.cu or csrc/package_merge.cu with the
-same C entry point (for example a parent commit's, unpacked with ``git
-archive``); it is built into its own library under build/kernel_ab/, must
-give the package kernel's output bit for bit, and is timed with it by
-CUDA events in turns: the given versions, the package's, the package's
-again, the given versions in reverse. Every version, the package's
-included, is called through ctypes on the same preallocated tensors.
+full-alphabet lane packs, the package-merge of the silesia-like, wide30k
+and full-alphabet fused compresses and of the fused encode of the 29-bit
+Fibonacci input at a 32-bit limit, the deposit of the silesia-like and
+full-alphabet deposit paths, and the histogram of the silesia-like and
+full-alphabet fused compresses, and again on the silesia-like symbols 2
+bytes past a 16-byte boundary with n_valid % 8 == 3). Each NAME=SOURCE.cu
+is another version of csrc/decode.cu, csrc/pack.cu, csrc/package_merge.cu,
+csrc/deposit.cu or csrc/hist.cu with the same C entry point (for example a
+parent commit's, unpacked with ``git archive``); it is built into its own
+library under build/kernel_ab/, must give the package kernel's output bit
+for bit, and is timed with it by CUDA events in turns: the given versions,
+the package's, the package's again, the given versions in reverse. Every
+version, the package's included, is called through ctypes on the same
+preallocated tensors. ``--variants`` adds the forms of K6 and K10 that
+were measured and not kept (``VARIANTS``, text edits of the package's
+sources).
 
-``--clock`` builds copies of csrc/decode.cu and csrc/package_merge.cu
-with clock64() stamps. For K1 it prints, averaged over warps and steps,
-the cycles each phase of a step takes: the decode (length, rank, symbol,
-shift, ballot), the wait for the ring's copies, the barrier, and the
-scan, refill and next copy; and the output store. For K7's one-block
-kernel it prints the cycles thread 0 spends in each phase: the histogram
-sweep, the absent scan, the sort, the leaf keys and first packages, then,
-summed over the rounds, the merge-path search, the merge (with the next
-round's packages) and the round barrier, and last the count and the
-lengths. The stamps cost time of their own, so each instrumented
-kernel's time is printed beside its split.
+``--clock`` builds copies of csrc/decode.cu, csrc/package_merge.cu,
+csrc/deposit.cu and csrc/hist.cu with clock64() stamps. For K1 it prints,
+averaged over warps and steps, the cycles each phase of a step takes: the
+decode (length, rank, symbol, shift, ballot), the wait for the ring's
+copies, the barrier, and the scan, refill and next copy; and the output
+store. For K7's one-block kernel it prints the cycles thread 0 spends in
+each phase: the histogram sweep, the absent scan, the sort, the leaf keys
+and first packages, then, summed over the rounds, the merge-path search,
+the merge (with the next round's packages) and the round barrier, and last
+the count and the lengths. For K10 and K6 it prints the cycles lane 0 of
+each warp spends in each phase, averaged over the warps (``*_CLOCK_PHASES``).
+The stamps cost time of their own, so each instrumented kernel's time is
+printed beside its split.
 """
 
 from __future__ import annotations
@@ -49,7 +58,7 @@ import chip_smoke as cs  # noqa: E402
 import huffman_tpu_torch as ht  # noqa: E402
 from huffman_tpu_torch.container import block_format as bf  # noqa: E402
 from huffman_tpu_torch.corpus import fibonacci_pairs, silesia_like, wide30k, zipf_pairs  # noqa: E402
-from huffman_tpu_torch.ops import cuda_encode, device_codebook, fused  # noqa: E402
+from huffman_tpu_torch.ops import cuda_encode, cuda_hist, device_codebook, fused  # noqa: E402
 from huffman_tpu_torch.runtime import kernels  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_ab"
@@ -57,7 +66,43 @@ P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 DECODE_ARGS = [P, I64, P, I, P, P, P, I, I, I, I, I, P]
 PACK_ARGS = [P, P, I64, I, P]
 SYMBOLS = {"decode_groups": "htpu_decode_groups", "pack_lanes": "htpu_pack_lanes",
-           "package_merge": "htpu_package_merge"}
+           "package_merge": "htpu_package_merge", "deposit_streams": "htpu_deposit_streams",
+           "histogram": "htpu_histogram"}
+# K6 reading its input once: each block reads its own share and adds a
+# symbol of its peer's bins in the peer's shared memory.
+HIST_SINGLE_READ = [
+    ("  if (owner == rank) atomicAdd(bins + (s & (kCtaBins - 1)), 1u);",
+     "  if (owner == rank) {\n    atomicAdd(bins + (s & (kCtaBins - 1)), 1u);\n  } else {\n"
+     "    uint32_t addr;\n    asm volatile(\"mapa.shared::cluster.u32 %0, %1, %2;\" : \"=r\"(addr)\n"
+     "                 : \"r\"((uint32_t)__cvta_generic_to_shared(bins + (s & (kCtaBins - 1)))), \"r\"(owner));\n"
+     "    asm volatile(\"red.shared::cluster.add.u32 [%0], %1;\" :: \"r\"(addr), \"r\"(1u) : \"memory\");\n  }"),
+    ("  __syncthreads();  // bins zero before any add", "  cg::this_cluster().sync();"),
+    ("  __syncthreads();  // every add landed", "  cg::this_cluster().sync();"),
+    ("  const int64_t reader = blockIdx.x / kCtas;", "  const int64_t reader = blockIdx.x;"),
+    ("  const int64_t stride = gridDim.x / kCtas * (int64_t)kThreads;", "  const int64_t stride = gridDim.x * (int64_t)kThreads;"),
+]
+# --variants: the forms of K6 and K10 measured and not kept, and K6's
+# split into loads and flush, as text edits of the package's sources. The
+# TIMING_ONLY ones give another output: they are timed, not checked.
+TIMING_ONLY = {"hist_loads_only", "hist_no_flush"}
+VARIANTS = {
+    # The tile's copies issued before the mask words' loads.
+    "deposit_tile_first": ("deposit.cu", [
+        ("  // The last word's staging, in flight through the block sum and the\n"
+         "  // counts (issued after the mask words' loads, which it would delay).\n"
+         "  if (w1 > w0) load_tile(tile, staging, row - wl, n_steps, w1 - 1, wl);\n", ""),
+        ("  // The slots past the body, in equal shares",
+         "  if (w1 > w0) load_tile(tile, staging, row - wl, n_steps, w1 - 1, wl);\n"
+         "  // The slots past the body, in equal shares")]),
+    "hist_loads_only": ("hist.cu", [
+        ("  int64_t i = reader * kThreads + threadIdx.x;", "  uint32_t sink = 0;\n  int64_t i = reader * kThreads + threadIdx.x;"),
+        ("    for (int u = 0; u < kUnroll; ++u) count8(v[u], rank, bins);",
+         "    for (int u = 0; u < kUnroll; ++u) sink ^= v[u].x ^ v[u].y ^ v[u].z ^ v[u].w;"),
+        ("  __syncthreads();  // every add landed", "  if (sink == 0x9E3779B9u) bins[0] = sink;\n  __syncthreads();  // every add landed")]),
+    "hist_no_flush": ("hist.cu", [("    if (v) atomicAdd(out + b, v);", "    if (v == 0xFFFFFFFFu) atomicAdd(out + b, v);")]),
+    "hist_single_read": ("hist.cu", HIST_SINGLE_READ),
+    "hist_single_read_cluster4": ("hist.cu", [*HIST_SINGLE_READ, ("constexpr int kCtas = 2;", "constexpr int kCtas = 4;")]),
+}
 STAMP = "#define STAMP(i) { const long long now_ = clock64(); acc[i] += now_ - prev; prev = now_; }"
 CLOCK_EDITS = [  # (text in csrc/decode.cu, its form in the clock64() copy)
     ("uint32_t* __restrict__ out) {",
@@ -97,6 +142,40 @@ PM_CLOCK_EDITS = [  # (text in csrc/package_merge.cu, its form in the clock64() 
     ("(int32_t*)leaf_sym);\n    return", "(int32_t*)leaf_sym, (long long*)dbg);\n    return"),
     ('extern "C" int htpu_package_merge', 'extern "C" int clk_package_merge'),
 ]
+DEPOSIT_CLOCK_EDITS = [  # (text in csrc/deposit.cu, its form in the clock64() copy)
+    ("int words_per_run, uint32_t* __restrict__ out) {",
+     f"int words_per_run, uint32_t* __restrict__ out, long long* dbg) {{\n  long long acc[4] = {{}};\n"
+     f"  long long prev = clock64();\n{STAMP}"),
+    ("  int top = n_body - __reduce_add_sync(kFull, s_later[wl]);\n",
+     "  int top = n_body - __reduce_add_sync(kFull, s_later[wl]);\n  STAMP(0)\n"),
+    ("    // Lane j: the fires at steps j .. 31", "    STAMP(1)\n    // Lane j: the fires at steps j .. 31"),
+    ("    // The steps in order, last first", "    STAMP(2)\n    // The steps in order, last first"),
+    ("      }\n    }\n    top -= __shfl_sync", "      }\n    }\n    STAMP(3)\n    top -= __shfl_sync"),
+    ("    for (int i = lane; i < min(top, cap); i += kLanes) body[i] = 0u;\n  }\n}",
+     "    for (int i = lane; i < min(top, cap); i += kLanes) body[i] = 0u;\n  }\n"
+     "  if (wl == 0)\n    for (int i = 0; i < 4; ++i)\n"
+     "      dbg[(((int64_t)g * gridDim.x + q) * kWarps + warp) * 4 + i] = acc[i];\n}"),
+    ("cap, per_run, (uint32_t*)out);", "cap, per_run, (uint32_t*)out, (long long*)dbg);"),
+    ("int cap, void* out, void* stream) {", "int cap, void* out, void* dbg, void* stream) {"),
+    ('extern "C" int htpu_deposit_streams', 'extern "C" int clk_deposit_streams'),
+]
+DEPOSIT_CLOCK_PHASES = ("zero past the body + later words + carries + block sum", "ballots + counts + 2 barriers",
+                        "suffix sums", "walk of the steps")
+HIST_CLOCK_EDITS = [  # (text in csrc/hist.cu, its form in the clock64() copy)
+    ("int64_t lead, uint32_t* __restrict__ hist) {",
+     f"int64_t lead, uint32_t* __restrict__ hist, long long* dbg) {{\n  long long acc[4] = {{}};\n"
+     f"  long long prev = clock64();\n{STAMP}"),
+    ("  __syncthreads();  // bins zero before any add", "  STAMP(0)\n  __syncthreads();  // bins zero before any add"),
+    ("  __syncthreads();  // every add landed", "  STAMP(1)\n  __syncthreads();  // every add landed"),
+    ("  uint32_t* out = hist + rank * kCtaBins;", "  STAMP(2)\n  uint32_t* out = hist + rank * kCtaBins;"),
+    ("    if (v) atomicAdd(out + b, v);\n  }\n}",
+     "    if (v) atomicAdd(out + b, v);\n  }\n  STAMP(3)\n"
+     "  if (threadIdx.x % 32 == 0)\n    for (int i = 0; i < 4; ++i) dbg[(blockIdx.x * 32 + threadIdx.x / 32) * 4 + i] = acc[i];\n}"),
+    ("n_valid, lead, (uint32_t*)hist);", "n_valid, lead, (uint32_t*)hist, (long long*)dbg);"),
+    ("void* hist, void* stream) {", "void* hist, void* dbg, void* stream) {"),
+    ('extern "C" int htpu_histogram', 'extern "C" int clk_histogram'),
+]
+HIST_CLOCK_PHASES = ("zero bins", "count (loads + atomics)", "barrier", "flush")
 PM_CLOCK_PHASES = ("sweep", "absent scan", "sort", "leaf keys + first packages",
                    "merge-path search", "merge + packages", "round barrier", "count + lengths")
 
@@ -151,6 +230,24 @@ def runner(lib: ctypes.CDLL, kind: str, args, dbg=None):
         call = lambda: fn(s.data_ptr(), s.shape[1], n.data_ptr(), s.shape[0], t.lj_limit.data_ptr(),
                           t.base.data_ptr(), t.sym_order.data_ptr(), t.sym_order.numel(), int(tr), B,
                           t.min_len, t.max_len, out.data_ptr(), *extra, stream)
+    elif kind == "deposit_streams":
+        st, mask, body, words_cap = args
+        cap = -(-words_cap // 1024) * 1024
+        out = torch.empty((body.numel(), 2048 + cap), dtype=torch.int32, device=st.device)
+        fn = lib.clk_deposit_streams if dbg is not None else lib.htpu_deposit_streams
+        fn.argtypes = [*kernels.KERNELS["deposit_streams"][1], *([P] if dbg is not None else []), P]
+        extra = [dbg.data_ptr()] if dbg is not None else []
+        call = lambda: fn(st.data_ptr(), st.shape[1] - 1, mask.data_ptr(), mask.shape[1], body.data_ptr(),
+                          body.numel(), cap, out.data_ptr(), *extra, stream)
+    elif kind == "histogram":
+        sym, n_valid = args
+        # Zeroed once: the first call's counts are checked, the timed calls
+        # add to them (the same atomics and bins).
+        out = torch.zeros(65536, dtype=torch.int32, device=sym.device)
+        fn = lib.clk_histogram if dbg is not None else lib.htpu_histogram
+        fn.argtypes = [*kernels.KERNELS["histogram"][1], *([P] if dbg is not None else []), P]
+        extra = [dbg.data_ptr()] if dbg is not None else []
+        call = lambda: fn(sym.data_ptr(), n_valid, out.data_ptr(), *extra, stream)
     else:
         c, l = args
         out = torch.empty((c.shape[0], c.shape[1] + 1), dtype=torch.int32, device=c.device)
@@ -168,21 +265,31 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_ab: needs a CUDA card", file=sys.stderr)
         return 2
+    flags = {"--clock", "--variants"}
     clock = "--clock" in sys.argv[1:]
-    given = dict(a.split("=", 1) for a in sys.argv[1:] if a != "--clock")
+    given = dict(a.split("=", 1) for a in sys.argv[1:] if a not in flags)
     card = cs.card_line()
     print(card)
     sources = {name: Path(src) for name, src in given.items()}
+    if "--variants" in sys.argv[1:]:
+        OUT.mkdir(parents=True, exist_ok=True)
+        for name, (src, edits) in VARIANTS.items():
+            (OUT / f"{name}.cu").write_text(clock_source(src, edits))
+            sources[name] = OUT / f"{name}.cu"
+            given[name] = str(sources[name])
     if clock:
         OUT.mkdir(parents=True, exist_ok=True)
-        for name, src, edits in (("clock", "decode.cu", CLOCK_EDITS), ("pm_clock", "package_merge.cu", PM_CLOCK_EDITS)):
+        for name, src, edits in (("clock", "decode.cu", CLOCK_EDITS), ("pm_clock", "package_merge.cu", PM_CLOCK_EDITS),
+                                 ("deposit_clock", "deposit.cu", DEPOSIT_CLOCK_EDITS),
+                                 ("hist_clock", "hist.cu", HIST_CLOCK_EDITS)):
             (OUT / f"{name}.cu").write_text(clock_source(src, edits))
             sources[name] = OUT / f"{name}.cu"
     libs = build(sources)
     libs["package"] = kernels.load()
     dev = torch.device("cuda")
     sil = silesia_like(cs.BIG, seed=7).tobytes()
-    enc_calls = [(cuda_encode, "pack_lanes"), (device_codebook, "package_merge")]
+    enc_calls = [(cuda_encode, "pack_lanes"), (device_codebook, "package_merge"), (fused, "histogram"),
+                 (cuda_encode, "pack_streams")]
     blob, enc = cs.capture(enc_calls, ht.compress, sil, dev)
     full = zipf_pairs(cs.BIG, 65536, np.random.default_rng(11)).tobytes()
     _, enc_full = cs.capture(enc_calls, ht.compress, full, dev)
@@ -193,6 +300,11 @@ def main() -> int:
     small = zipf_pairs(cs.TRANSLATE_BYTES, 300, np.random.default_rng(5)).tobytes()
     _, dec_tr = cs.capture([(bf, "decode_groups")], ht.decompress, ht.compress(small, dev), dev)
     s, n, *rest = dec["decode_groups"]
+    deposit = {name: cs.capture([(cuda_encode, "deposit_streams")], cuda_encode.pack_streams_kernel_deposit,
+                                *e["pack_streams"])[1]["deposit_streams"]
+               for name, e in (("silesia", enc), ("full", enc_full))}
+    sym, n_valid = enc["histogram"]
+    odd = (sym.reshape(-1)[1:], n_valid - 5)  # 2 bytes past a 16-byte boundary; n_valid % 8 == 3
     cases = [("decode_groups", "rank mode", dec["decode_groups"]),
              ("decode_groups", "translate mode", dec_tr["decode_groups"]),
              ("decode_groups", "rank mode, 160 groups", (s.repeat(5, 1), n.repeat(5), *rest)),
@@ -201,15 +313,22 @@ def main() -> int:
              ("package_merge", "K=4096 silesia", enc["package_merge"]),
              ("package_merge", "K=4096 max_len 32 fibonacci", enc_fib["package_merge"]),
              ("package_merge", "K=32768 wide30k", enc_wide["package_merge"]),
-             ("package_merge", "K=65536 full", enc_full["package_merge"])]
+             ("package_merge", "K=65536 full", enc_full["package_merge"]),
+             ("deposit_streams", "silesia", deposit["silesia"]),
+             ("deposit_streams", "full", deposit["full"]),
+             ("histogram", "silesia", enc["histogram"]),
+             ("histogram", "full", enc_full["histogram"]),
+             ("histogram", "silesia, odd offset and length", odd)]
+    plain = {"package_merge": lambda *a: torch.stack(device_codebook.package_merge_plain(*a)),
+             "deposit_streams": cuda_encode.deposit_streams_plain, "histogram": cuda_hist.histogram_plain}
     for kind, variant, args in cases:
         package = runner(libs["package"], kind, args)
         want = package().clone()
-        if kind == "package_merge" and not torch.equal(want, torch.stack(device_codebook.package_merge_plain(*args))):
+        if kind in plain and not torch.equal(want, plain[kind](*args)):
             raise AssertionError(f"the package's kernel [{kind}, {variant}] differs from its plain version")
         fns = {name: runner(libs[name], kind, args) for name in given if hasattr(libs[name], SYMBOLS[kind])}
         for name, fn in fns.items():
-            if not torch.equal(fn(), want):
+            if not torch.equal(fn(), want) and name not in TIMING_ONLY:
                 raise AssertionError(f"{name} [{kind}, {variant}] differs from the package's kernel")
         fns["package"] = package
         order = [*fns, *reversed(fns)]
@@ -245,6 +364,25 @@ def main() -> int:
                   f"instrumented kernel {ms:.4f} ms; cycles (thread 0; the rounds' summed over "
                   f"{args[2] - 1} rounds): "
                   + ", ".join(f"{k} {v}" for k, v in cycles.items()) + f" ({card})")
+        splits = [("deposit_streams", "deposit_clock", DEPOSIT_CLOCK_PHASES, variant, args)
+                  for variant, args in deposit.items()]
+        splits += [("histogram", "hist_clock", HIST_CLOCK_PHASES, variant, args)
+                   for variant, args in (("silesia", enc["histogram"]), ("full", enc_full["histogram"]))]
+        for kind, lib_name, phases, label, args in splits:
+            dbg = torch.zeros((1 << 20, len(phases)), dtype=torch.int64, device=dev)
+            fn = runner(libs[lib_name], kind, args, dbg)
+            ms = cs.cuda_ms(fn, 10)
+            want = runner(libs["package"], kind, args)()
+            dbg.zero_()
+            fn_once = runner(libs[lib_name], kind, args, dbg)
+            if not torch.equal(fn_once(), want):
+                raise AssertionError(f"the clock copy's output differs from the package's kernel [{kind}]")
+            torch.cuda.synchronize()
+            rows = dbg[dbg.sum(dim=1) > 0].double()
+            print(f"clock {kind} [{label}]: instrumented kernel {ms:.4f} ms; cycles a warp (mean over "
+                  f"{rows.shape[0]} warps, lane 0): " + ", ".join(
+                      f"{k} {v:.0f}" for k, v in zip(phases, rows.mean(dim=0).tolist()))
+                  + f"; slowest warp {rows.sum(dim=1).max():.0f} ({card})")
     r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
                        capture_output=True, text=True)
     print(f"SM clock, max: {r.stdout.strip()}")

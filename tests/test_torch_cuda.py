@@ -256,12 +256,18 @@ def _padded(sym, B=64):
     return torch.from_numpy(out.view(np.int16)).reshape(n_lanes, B)
 
 
-@pytest.mark.parametrize("n,n_unique,skew", [(1, 1, 0.0), (1000, 7, 0.0), (65535, 4096, 1.1),
-                                             (3 * 65536 + 7, 65536, 0.0), (1 << 22, 1, 0.0),
-                                             ((1 << 24) + 5, 4000, 1.1)])
-def test_histogram_kernel_matches_plain(dev, n, n_unique, skew):
+@pytest.mark.parametrize("n,n_unique,skew,offset", [
+    (1, 1, 0.0, 0), (1000, 7, 0.0, 0), (65535, 4096, 1.1, 0), (3 * 65536 + 7, 65536, 0.0, 0),
+    (1 << 22, 1, 0.0, 0), ((1 << 24) + 5, 4000, 1.1, 0),
+    # n % 8 == 1 .. 7, the view 2 to 14 bytes past a 16-byte boundary
+    *[(8 * 40000 + r, 4096, 1.1, r) for r in range(1, 8)],
+    ((1 << 24), 1, 0.0, 1),     # one hot bin: 2^24 symbols, unaligned
+    (16 << 20, 65536, 0.0, 0),  # all 65,536 bins at the full-alphabet size (32 MiB)
+])
+def test_histogram_kernel_matches_plain(dev, n, n_unique, skew, offset):
     sym = _symbols(n_unique, n, n, skew)
-    t = _padded(sym).to(dev)
+    padded = _padded(sym).reshape(-1)
+    t = torch.cat([torch.zeros(offset, dtype=torch.int16), padded]).to(dev)[offset:]
     got = cuda_hist.histogram(t, n)
     want = cuda_hist.histogram_plain(t, n)
     torch.cuda.synchronize()
@@ -367,15 +373,16 @@ def _protocol_case(seed, n_real, B, min_len, max_len, n_groups):
     (2, 2400, 37, 1, 32, 3),     # three groups, B not a multiple of 32
     (3, 3000, 512, 1, 18, 3),    # the container's block size
     (4, 700, 16, 1, 2, 1),       # lanes with fewer than 64 bits
+    (5, 140 * 1024, 512, 1, 3, 140),  # more groups than SMs, sparse fires
 ])
 def test_deposit_kernel_matches_plain(dev, seed, n_real, B, min_len, max_len, n_groups):
     """K10 against its plain version and the deposit path against the
     tensor-op pack_streams, at the tight cap (the largest group's body)
     and at a loose one."""
     codes, eff = _protocol_case(seed, n_real, B, min_len, max_len, n_groups)
-    _, counts = cuda_encode.pack_streams(codes, eff, n_real, B * GROUP_LANES)
-    tight = max(int(counts.max()) - 2 * GROUP_LANES, 1)
     c, e = codes.to(dev), eff.to(dev)
+    _, counts = cuda_encode.pack_streams(c, e, n_real, B * GROUP_LANES)
+    tight = max(int(counts.max()) - 2 * GROUP_LANES, 1)
     for cap in (tight, B * GROUP_LANES):
         ref_s, ref_c = cuda_encode.pack_streams(c, e, n_real, cap)
         kernels.reset_launch_counts()
@@ -395,6 +402,13 @@ def test_deposit_kernel_matches_plain(dev, seed, n_real, B, min_len, max_len, n_
         body = r[:, -1].reshape(-1, GROUP_LANES).sum(dim=1, dtype=torch.int32)
         assert torch.equal(cuda_encode.deposit_streams(st, mask, body, cap),
                            cuda_encode.deposit_streams_plain(st, mask, body, cap))
+        # Body word counts that disagree with the fire bits: below them the
+        # first fires' slots fall below 0 and are dropped, above them the
+        # first slots stay zero.
+        for shift in (-40, 40):
+            off = (body + shift).clamp(max=cap)
+            assert torch.equal(cuda_encode.deposit_streams(st, mask, off, cap),
+                               cuda_encode.deposit_streams_plain(st, mask, off, cap))
 
 
 def _unpacked_case(dev, alphabet, max_len):

@@ -100,3 +100,122 @@ def test_deposit_rejects_a_small_cap():
     codes, eff, _ = _case(*CASES[0])
     with pytest.raises(ValueError, match="words_cap"):
         ce.pack_streams_kernel_deposit(_t(codes), _t(eff), CASES[0][1], 16)
+
+
+def _kernel_inputs(codes, eff, n_real, B):
+    """(staging, mask_bits, body_words) as ``pack_streams_kernel_deposit``
+    hands them to K10."""
+    staging = ce.pack_lanes(_t(codes), _t(eff))
+    r, fire = ce._fires(_t(eff), n_real)
+    mb = -(-B // 32)
+    fire_p = np.pad(fire.numpy(), ((0, 0), (0, mb * 32 - B))).reshape(-1, mb, 32)
+    mask = (fire_p.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(axis=2).astype(np.uint32)
+    body = r[:, -1].reshape(-1, GROUP_LANES).sum(dim=1, dtype=torch.int32)
+    return staging, _t(mask), body
+
+
+def _deposit_mirror(staging, mask_bits, body_words, words_cap, max_runs=16):
+    """csrc/deposit.cu's decomposition in numpy: block (q, g) takes run q of
+    mask words (32 steps each) of group g, at most ``max_runs`` (kMaxRuns)
+    runs a group; its slot base is the body count less the group's fires
+    after the run, and each lane enters the run with the words of its
+    first two fires after it (v1, v2). Word by word from the last,
+    per-(step, warp) fire counts give exclusive warp offsets and step
+    totals, whose suffix sums give each step's base; each warp then walks
+    the word's steps backward, a fired lane storing v2 at base + warp
+    offset + its rank in the warp and rolling its carries. Returns (out,
+    times each output word was written): the kernel's output starts
+    uninitialised, so every word must be written exactly once."""
+    st = staging.numpy().view(np.uint32)
+    n_lanes, B1 = st.shape
+    B = B1 - 1
+    mw = mask_bits.shape[1]
+    cap = -(-words_cap // GROUP_LANES) * GROUP_LANES
+    ngroups = n_lanes // GROUP_LANES
+    pre = PRELOAD_WORDS * GROUP_LANES
+    bits = (mask_bits.numpy().view(np.uint32)[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
+    fire = bits.reshape(n_lanes, mw * 32)[:, :B].astype(bool)
+    n_words = -(-B // 32)
+    per_run = -(-n_words // max_runs) if n_words > max_runs else 1
+    runs = -(-n_words // per_run) if n_words else 1
+    out = np.zeros((ngroups, pre + cap), np.uint32)
+    written = np.zeros(out.shape, np.int64)
+
+    def store(g, idx, val):
+        out[g, idx] = val
+        np.add.at(written[g], idx, 1)
+
+    lane = np.arange(GROUP_LANES)
+    for g in range(ngroups):
+        f_g, st_g = fire[g * GROUP_LANES:(g + 1) * GROUP_LANES], st[g * GROUP_LANES:(g + 1) * GROUP_LANES]
+        n_body = int(body_words[g])
+        lo = min(max(n_body, 0), cap)
+        share = -(-(cap - lo) // runs)
+        for q in range(runs):  # the group's blocks share the zeroing past the body
+            store(g, pre + np.arange(lo + q * share, min(cap, lo + (q + 1) * share)), 0)
+        for q in range(runs):
+            w0, w1 = q * per_run, min(n_words, q * per_run + per_run)
+            later = f_g[:, 32 * w1:]
+            top = n_body - int(later.sum())
+            seen = np.cumsum(np.pad(later, ((0, 0), (0, 1))), axis=1)  # a column for no later step
+            has1, has2 = seen[:, -1] >= 1, seen[:, -1] >= 2
+            f1 = np.minimum(32 * w1 + np.argmax(seen >= 1, axis=1), B)
+            f2 = np.minimum(32 * w1 + np.argmax(seen >= 2, axis=1), B)
+            v1 = np.where(has1, st_g[lane, f1], st_g[:, B])
+            v2 = np.where(has2, st_g[lane, f2], np.where(has1, st_g[:, B], 0)).astype(np.uint32)
+            for c in range(w1 - 1, w0 - 1, -1):
+                steps = [t for t in range(32 * c, 32 * c + 32) if t < B]
+                counts = np.stack([f_g[:, t].reshape(32, 32).sum(axis=1) for t in steps])  # (step, warp)
+                offsets = np.cumsum(counts, axis=1) - counts
+                suffix = np.cumsum(counts.sum(axis=1)[::-1])[::-1]
+                for j in range(len(steps) - 1, -1, -1):
+                    fired = f_g[:, steps[j]]
+                    in_warp = np.cumsum(fired.reshape(32, 32), axis=1).reshape(-1) - fired
+                    slot = top - suffix[j] + offsets[j, lane // 32] + in_warp
+                    keep = fired & (slot >= 0) & (slot < cap)
+                    store(g, pre + slot[keep], v2[keep])
+                    v2 = np.where(fired, v1, v2)
+                    v1 = np.where(fired, st_g[:, steps[j]], v1)
+                top -= int(suffix[0]) if len(steps) else 0
+            if q == 0:
+                store(g, lane, v1)
+                store(g, GROUP_LANES + lane, v2)
+                store(g, pre + np.arange(0, min(top, cap)), 0)
+    return out, written
+
+
+MIRROR_CASES = [  # (seed, n_real, B, min_len, max_len, n_groups), body word shift, max runs
+    *[(case, 0, 16) for case in CASES],
+    ((6, 1024, 100, 1, 12, 1), 0, 2),   # runs of two words; B not a multiple of 32
+    ((10, 1024, 100, 1, 2, 1), 0, 16),  # four runs, sparse fires: 0, 1 or 2 fires after a run
+    ((11, 1024, 200, 1, 3, 1), 0, 16),  # seven runs, the last one short
+    ((7, 1500, 24, 1, 18, 2), 0, 16),   # every third lane never fires
+    ((8, 1000, 64, 1, 18, 1), -40, 16),  # body count below the fires: slots < 0 dropped
+    ((9, 1000, 64, 1, 18, 1), 40, 16),   # body count above the fires: the first slots zero
+]
+
+
+@pytest.mark.parametrize("case,shift,max_runs", MIRROR_CASES,
+                         ids=[f"{c[0][0]}-shift{c[1]}-runs{c[2]}" for c in MIRROR_CASES])
+def test_deposit_kernel_decomposition(case, shift, max_runs):
+    """The CUDA kernel's run split, suffix/prefix offsets and carries from
+    the first two later fires, mirrored in numpy, against the plain version
+    and deposit_streams_pallas in interpret mode."""
+    codes, eff, _ = _case(*case)
+    seed, n_real, B = case[0], case[1], case[2]
+    if seed == 7:
+        eff = eff.copy()
+        eff[::3] = 1  # fewer than 32 bits in B = 24 steps: these lanes never fire
+        codes = np.where(eff == 1, codes & 1, codes).astype(np.uint32)
+    staging, mask, body = _kernel_inputs(codes, eff, n_real, B)
+    body = body + shift
+    cap = B * GROUP_LANES
+    got, written = _deposit_mirror(staging, mask, body, cap, max_runs)
+    assert (written == 1).all()
+    plain = ce.deposit_streams_plain(staging, mask, body, cap).numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, plain)
+    want = np.asarray(pe.deposit_streams_pallas(
+        pe._to_grid(jnp.asarray(staging.numpy())), pe._to_grid(jnp.asarray(mask.numpy())),
+        jnp.asarray(body.numpy()), cap, interpret=True,
+    ))
+    np.testing.assert_array_equal(got, want)

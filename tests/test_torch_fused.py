@@ -55,6 +55,80 @@ def test_histogram_matches_pallas(n, n_valid):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _hist_mirror(sym, n_valid, offset, ctas=2, clusters=1, threads=1024, unroll=4, single_read=False):
+    """csrc/hist.cu's partition of the work, in numpy: ``sym`` starts
+    ``offset`` symbols past a 16-byte boundary; symbols up to the next
+    boundary (the head) and after the last whole 8-symbol vector (the
+    tail) are counted one by one by the first reader's threads 0-15; the
+    vectors go to the readers' threads by a grid stride, kUnroll at a time
+    and then one by one; a symbol counts in the bins of the cluster block
+    whose rank is its top bits: every block of a cluster reads the
+    cluster's vectors and counts only its own bins (with ``single_read``,
+    the kernel's measured alternative, each block reads its own vectors
+    and counts a peer's symbols in the peer's bins). Returns (histogram
+    from the blocks' flushes, times each symbol was counted)."""
+    cta_bins = 65536 // ctas
+    grid = clusters * ctas
+    lead = min((16 - 2 * offset % 16) % 16 // 2, n_valid)
+    n_vec = (n_valid - lead) // 8
+    readers = grid if single_read else clusters
+    stride = readers * threads
+    bins = np.zeros((grid, cta_bins), np.int64)
+    counted = np.zeros(n_valid, np.int64)
+
+    def count(block, pos):
+        s = sym[pos].astype(np.int64)
+        owner = s // cta_bins
+        mine = np.ones(len(pos), bool) if single_read else owner == block % ctas
+        np.add.at(bins, (block - block % ctas + owner[mine], s[mine] % cta_bins), 1)
+        np.add.at(counted, pos[mine], 1)
+
+    for block in range(grid):
+        reader = block if single_read else block // ctas
+        for t in range(threads):
+            i, vecs = reader * threads + t, []
+            while i + (unroll - 1) * stride < n_vec:
+                vecs += [i + u * stride for u in range(unroll)]
+                i += unroll * stride
+            while i < n_vec:
+                vecs.append(i)
+                i += stride
+            pos = lead + 8 * np.repeat(np.array(vecs, np.int64), 8) + np.tile(np.arange(8), len(vecs))
+            if reader == 0 and t < 16:
+                k = t if t < 8 else lead + 8 * n_vec + t - 8
+                if k < (lead if t < 8 else n_valid):
+                    pos = np.append(pos, k)
+            count(block, pos)
+    hist = np.zeros(65536, np.int64)
+    for block in range(grid):
+        rank = block % ctas
+        hist[rank * cta_bins:(rank + 1) * cta_bins] += bins[block]
+    return hist, counted
+
+
+@pytest.mark.parametrize("n_valid,offset,ctas,clusters,threads,single_read", [
+    (4096, 0, 2, 1, 1024, False),  # the kernel's block size, aligned
+    (4999, 3, 2, 3, 16, False),    # n_valid % 8 == 7, unaligned head, three clusters
+    (4001, 7, 4, 2, 16, False),    # four blocks a cluster, n_valid % 8 == 1
+    (3003, 1, 2, 2, 32, False),    # n_valid % 8 == 3
+    (3003, 1, 2, 2, 32, True),     # each block reads its own share once
+    (5, 1, 2, 1, 1024, False),     # fewer symbols than the head
+])
+def test_histogram_kernel_partition(n_valid, offset, ctas, clusters, threads, single_read):
+    """Every symbol counted once, in the bins of the block that owns it, and
+    the blocks' flushes against the plain version and histogram_pallas in
+    interpret mode."""
+    rng = np.random.default_rng(n_valid + offset)
+    n = n_valid + offset + 3
+    sym = np.concatenate([rng.integers(0, 65536, n // 2), rng.integers(0, 40, n - n // 2)]).astype(np.uint16)
+    view = sym[offset:]
+    hist, counted = _hist_mirror(view, n_valid, offset, ctas, clusters, threads, single_read=single_read)
+    assert (counted == 1).all()
+    np.testing.assert_array_equal(hist, histogram(_u16(view), n_valid).numpy())
+    want = np.asarray(histogram_pallas(jnp.asarray(view[:n_valid].astype(np.int32)), interpret=True, cell=4096))
+    np.testing.assert_array_equal(hist, want)
+
+
 def _codebook(n_unique, max_len=18, seed=0):
     rng = np.random.default_rng(seed)
     freqs = np.zeros(65536, np.int64)
