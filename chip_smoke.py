@@ -26,7 +26,9 @@ Phases, each printing one line or a few:
          SMs);
        - the histogram again on a view of the silesia-like symbols 2 bytes
          past a 16-byte boundary, with n_valid % 8 == 3 (its unaligned
-         head and its tail);
+         head and its tail), and the canonical-rank gather on the same
+         kind of view of the wide30k symbols (its funnel-shifted loads
+         and its tail);
        - the lane pack at the full-alphabet shape as well as silesia-like;
        - the in-kernel deposit (K10) on the lane-pack and stream-assembly
          arguments of the silesia-like and full-alphabet compresses, with
@@ -305,7 +307,7 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
     check_no_spills(log, ("decode_groups_kernel", "pack_lanes_kernel", "leaf_tile_sort",
                           "leaf_merge_pass", "leaves_init", "pm_round", "pm_count", "pm_one_block",
-                          "deposit_streams_kernel", "histogram_kernel"))
+                          "deposit_streams_kernel", "histogram_kernel", "rank_canonical_kernel"))
 
     silesia = silesia_like(BIG, seed=7).tobytes()
     wide = wide30k(BIG).tobytes()
@@ -356,6 +358,9 @@ def main() -> int:
     # kernel's unaligned head and its tail.
     sym, n_valid = enc["histogram"]
     hist_odd = (sym.reshape(-1)[1:], n_valid - 5)
+    # K9 on the same kind of view of the wide30k rank-stage arguments.
+    sym9, n_valid9, *tables9 = enc_wide["gather_rank_canonical"]
+    canon_odd = (sym9.reshape(-1)[1:], n_valid9 - 5, *tables9)
 
     checks = [  # (record name, variant, kernel, plain, args, iters, plain iters)
         ("histogram", "silesia", ch.histogram, ch.histogram_plain, enc["histogram"], 20, 3),
@@ -372,6 +377,8 @@ def main() -> int:
          cg.gather_rank_canonical_plain, enc_wide["gather_rank_canonical"], 20, 2),
         ("gather_rank_canonical", "identity, full", cg.gather_rank_canonical,
          cg.gather_rank_canonical_plain, enc_full["gather_rank_canonical"], 20, 2),
+        ("gather_rank_canonical", "rank stage, wide30k, odd offset and length", cg.gather_rank_canonical,
+         cg.gather_rank_canonical_plain, canon_odd, 20, 2),
         ("pack_lanes", "silesia", ce.pack_lanes, ce.pack_lanes_plain, enc["pack_lanes"], 10, 2),
         ("pack_lanes", "full", ce.pack_lanes, ce.pack_lanes_plain, enc_full["pack_lanes"], 10, 2),
         ("gather_codes", "silesia", cg.gather_codes, cg.gather_codes_plain, enc_host["gather_codes"], 20, 3),
@@ -421,7 +428,7 @@ def main() -> int:
         if err != 0:
             raise AssertionError(f"{name} [{variant}]: kernel differs from its plain version")
         records.setdefault(name, []).append(rec)
-    del enc_host, dec, dec_tr, dec_160, checks, deposit, unpacked, enc_fib, hist_odd
+    del enc_host, dec, dec_tr, dec_160, checks, deposit, unpacked, enc_fib, hist_odd, canon_odd
 
     # Phase 3: the paths, counting launches.
     def drive(name, data, **kwargs):

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """A/B times of the port's K1 (decode_groups), K4 (pack_lanes), K6
-(histogram), K7 (package_merge) and K10 (deposit_streams) kernels on one
-CUDA card, and clock64() splits of K1's step, K7's one-block kernel, K10
-and K6.
+(histogram), K7 (package_merge), K9 (gather_rank_canonical) and K10
+(deposit_streams) kernels on one CUDA card, and clock64() splits of K1's
+step, K7's one-block kernel, K10, K6 and K9.
 
-    python3 scripts/torch_kernel_ab.py [--clock] [--variants] [NAME=SOURCE.cu ...]
+    python3 scripts/torch_kernel_ab.py [--clock] [--variants] [--only=KIND[,KIND]] [NAME=SOURCE.cu ...]
 
 Captures the kernels' arguments from the main-path calls at 32 MiB (the
 silesia-like rank-mode decode, the 8 MiB 300-symbol translate-mode decode,
@@ -12,33 +12,41 @@ the rank-mode decode repeated to 160 groups, the silesia-like and
 full-alphabet lane packs, the package-merge of the silesia-like, wide30k
 and full-alphabet fused compresses and of the fused encode of the 29-bit
 Fibonacci input at a 32-bit limit, the deposit of the silesia-like and
-full-alphabet deposit paths, and the histogram of the silesia-like and
+full-alphabet deposit paths, the histogram of the silesia-like and
 full-alphabet fused compresses, and again on the silesia-like symbols 2
-bytes past a 16-byte boundary with n_valid % 8 == 3). Each NAME=SOURCE.cu
-is another version of csrc/decode.cu, csrc/pack.cu, csrc/package_merge.cu,
-csrc/deposit.cu or csrc/hist.cu with the same C entry point (for example a
-parent commit's, unpacked with ``git archive``); it is built into its own
-library under build/kernel_ab/, must give the package kernel's output bit
-for bit, and is timed with it by CUDA events in turns: the given versions,
-the package's, the package's again, the given versions in reverse. Every
-version, the package's included, is called through ctypes on the same
-preallocated tensors. ``--variants`` adds the forms of K6 and K10 that
-were measured and not kept (``VARIANTS``, text edits of the package's
-sources).
+bytes past a 16-byte boundary with n_valid % 8 == 3, and the canonical-rank
+gather of the wide30k (rank stage) and full-alphabet (identity) fused
+compresses, and again on the wide30k symbols 2 bytes past a 16-byte
+boundary with n_valid % 8 == 3). Each NAME=SOURCE.cu is another version of
+csrc/decode.cu, csrc/pack.cu, csrc/package_merge.cu, csrc/deposit.cu,
+csrc/hist.cu or csrc/rank_gather.cu with the same C entry point (for
+example a parent commit's, unpacked with ``git archive``); it is built
+into its own library under build/kernel_ab/, must give the package
+kernel's output bit for bit, and is timed with it by CUDA events in turns:
+the given versions, the package's, the package's again, the given
+versions in reverse. Every version, the package's included, is called
+through ctypes on the same preallocated tensors. ``--variants`` adds the
+forms of K6, K9 and K10 that were measured and not kept (``VARIANTS``,
+text edits of the package's sources; K9's: two or four vectors a thread
+a step, 512-thread blocks, stores with L2's normal policy, and, timing
+only, the loads and stores with no lookup). ``--only`` keeps the cases,
+variants and clock splits of the named kernels (``SYMBOLS``' keys).
 
 ``--clock`` builds copies of csrc/decode.cu, csrc/package_merge.cu,
-csrc/deposit.cu and csrc/hist.cu with clock64() stamps. For K1 it prints,
-averaged over warps and steps, the cycles each phase of a step takes: the
-decode (length, rank, symbol, shift, ballot), the wait for the ring's
-copies, the barrier, and the scan, refill and next copy; and the output
-store. For K7's one-block kernel it prints the cycles thread 0 spends in
-each phase: the histogram sweep, the absent scan, the sort, the leaf keys
-and first packages, then, summed over the rounds, the merge-path search,
-the merge (with the next round's packages) and the round barrier, and last
-the count and the lengths. For K10 and K6 it prints the cycles lane 0 of
-each warp spends in each phase, averaged over the warps (``*_CLOCK_PHASES``).
-The stamps cost time of their own, so each instrumented kernel's time is
-printed beside its split.
+csrc/deposit.cu, csrc/hist.cu and csrc/rank_gather.cu with clock64()
+stamps. For K1 it prints, averaged over warps and steps, the cycles each
+phase of a step takes: the decode (length, rank, symbol, shift, ballot),
+the wait for the ring's copies, the barrier, and the scan, refill and next
+copy; and the output store. For K7's one-block kernel it prints the cycles
+thread 0 spends in each phase: the histogram sweep, the absent scan, the
+sort, the leaf keys and first packages, then, summed over the rounds, the
+merge-path search, the merge (with the next round's packages) and the
+round barrier, and last the count and the lengths. For K10, K6 and K9 it
+prints the cycles lane 0 of each warp spends in each phase, averaged over
+the warps (``*_CLOCK_PHASES``; K9's: the table prologue, the first loads
+and the wait for the tables, then summed over the steps the compute,
+which waits for its loads, and the stores). The stamps cost time of their
+own, so each instrumented kernel's time is printed beside its split.
 """
 
 from __future__ import annotations
@@ -58,7 +66,7 @@ import chip_smoke as cs  # noqa: E402
 import huffman_tpu_torch as ht  # noqa: E402
 from huffman_tpu_torch.container import block_format as bf  # noqa: E402
 from huffman_tpu_torch.corpus import fibonacci_pairs, silesia_like, wide30k, zipf_pairs  # noqa: E402
-from huffman_tpu_torch.ops import cuda_encode, cuda_hist, device_codebook, fused  # noqa: E402
+from huffman_tpu_torch.ops import cuda_encode, cuda_gather, cuda_hist, device_codebook, fused  # noqa: E402
 from huffman_tpu_torch.runtime import kernels  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_ab"
@@ -67,7 +75,10 @@ DECODE_ARGS = [P, I64, P, I, P, P, P, I, I, I, I, I, P]
 PACK_ARGS = [P, P, I64, I, P]
 SYMBOLS = {"decode_groups": "htpu_decode_groups", "pack_lanes": "htpu_pack_lanes",
            "package_merge": "htpu_package_merge", "deposit_streams": "htpu_deposit_streams",
-           "histogram": "htpu_histogram"}
+           "histogram": "htpu_histogram", "gather_rank_canonical": "htpu_gather_rank_canonical"}
+# The kernel each source's variants and clock copy are for (``--only``).
+VARIANT_KIND = {"decode.cu": "decode_groups", "package_merge.cu": "package_merge", "deposit.cu": "deposit_streams",
+                "hist.cu": "histogram", "rank_gather.cu": "gather_rank_canonical"}
 # K6 reading its input once: each block reads its own share and adds a
 # symbol of its peer's bins in the peer's shared memory.
 HIST_SINGLE_READ = [
@@ -81,10 +92,10 @@ HIST_SINGLE_READ = [
     ("  const int64_t reader = blockIdx.x / kCtas;", "  const int64_t reader = blockIdx.x;"),
     ("  const int64_t stride = gridDim.x / kCtas * (int64_t)kThreads;", "  const int64_t stride = gridDim.x * (int64_t)kThreads;"),
 ]
-# --variants: the forms of K6 and K10 measured and not kept, and K6's
-# split into loads and flush, as text edits of the package's sources. The
+# --variants: the forms of K6, K9 and K10 measured and not kept, and K6's
+# split into loads and flush and K9's loads and stores alone, as text edits of the package's sources. The
 # TIMING_ONLY ones give another output: they are timed, not checked.
-TIMING_ONLY = {"hist_loads_only", "hist_no_flush"}
+TIMING_ONLY = {"hist_loads_only", "hist_no_flush", "k9_copy_only"}
 VARIANTS = {
     # The tile's copies issued before the mask words' loads.
     "deposit_tile_first": ("deposit.cu", [
@@ -102,6 +113,18 @@ VARIANTS = {
     "hist_no_flush": ("hist.cu", [("    if (v) atomicAdd(out + b, v);", "    if (v == 0xFFFFFFFFu) atomicAdd(out + b, v);")]),
     "hist_single_read": ("hist.cu", HIST_SINGLE_READ),
     "hist_single_read_cluster4": ("hist.cu", [*HIST_SINGLE_READ, ("constexpr int kCtas = 2;", "constexpr int kCtas = 4;")]),
+    # K9's block shape and symbols a thread a step, its stores through L2's
+    # normal policy, and its loads and stores alone (the symbols written
+    # as codes).
+    "k9_vecs2": ("rank_gather.cu", [("constexpr int kVecs = 8;", "constexpr int kVecs = 2;")]),
+    "k9_vecs4": ("rank_gather.cu", [("constexpr int kVecs = 8;", "constexpr int kVecs = 4;")]),
+    "k9_threads512": ("rank_gather.cu", [("constexpr int kCanonThreads = 1024;", "constexpr int kCanonThreads = 512;")]),
+    "k9_cached_stores": ("rank_gather.cu", [
+        ("        __stcs(codes4 + k, make_uint4(", "        codes4[k] = (make_uint4("),
+        ("        __stcs(lens4 + k, make_int4(", "        lens4[k] = (make_int4(")]),
+    "k9_copy_only": ("rank_gather.cu", [
+        ("        packed[e] = canonical<kIdentity>(w[e], s_canon, s_mask, s_cums, cap2, bound, base_l);\n",
+         "        packed[e] = w[e];\n")]),
 }
 STAMP = "#define STAMP(i) { const long long now_ = clock64(); acc[i] += now_ - prev; prev = now_; }"
 CLOCK_EDITS = [  # (text in csrc/decode.cu, its form in the clock64() copy)
@@ -176,6 +199,23 @@ HIST_CLOCK_EDITS = [  # (text in csrc/hist.cu, its form in the clock64() copy)
     ('extern "C" int htpu_histogram', 'extern "C" int clk_histogram'),
 ]
 HIST_CLOCK_PHASES = ("zero bins", "count (loads + atomics)", "barrier", "flush")
+K9_CLOCK_EDITS = [  # (text in csrc/rank_gather.cu, its form in the clock64() copy)
+    ("                      int bulk, uint32_t* __restrict__ codes,\n                      int32_t* __restrict__ lens) {",
+     "                      int bulk, uint32_t* __restrict__ codes,\n                      int32_t* __restrict__ lens, "
+     f"long long* dbg) {{\n  long long acc[4] = {{}};\n  long long prev = clock64();\n{STAMP}"),
+    ("  // 2. Lane j's boundary and base", "  STAMP(0)\n  // 2. Lane j's boundary and base"),
+    ("  if (bulk) wait_tables(bar);\n", "  if (bulk) wait_tables(bar);\n  STAMP(1)\n"),
+    ("      if (k < n_vec) {\n", "      STAMP(2)\n      if (k < n_vec) {\n"),
+    ("(int32_t)(packed[3] >> 26)));\n      }\n", "(int32_t)(packed[3] >> 26)));\n      }\n      STAMP(3)\n"),
+    ("      lens[i] = (int32_t)(packed >> 26);\n    }\n  }\n}\n",
+     "      lens[i] = (int32_t)(packed >> 26);\n    }\n  }\n  if (lane == 0)\n    for (int i = 0; i < 4; ++i)\n"
+     "      dbg[((int64_t)blockIdx.x * (kCanonThreads / 32) + threadIdx.x / 32) * 4 + i] = acc[i];\n}\n"),
+    ("void* codes, void* lens,\n    void* stream) {", "void* codes, void* lens,\n    void* dbg, void* stream) {"),
+    ("max_len, bulk,\n        (uint32_t*)codes, (int32_t*)lens);", "max_len, bulk,\n        (uint32_t*)codes, (int32_t*)lens, (long long*)dbg);"),
+    ('extern "C" int htpu_gather_rank_canonical', 'extern "C" int clk_gather_rank_canonical'),
+]
+K9_CLOCK_PHASES = ("table prologue (barrier init, ragged words, bulk issue)", "first loads + table wait",
+                   "compute (with the wait for its loads)", "stores")
 PM_CLOCK_PHASES = ("sweep", "absent scan", "sort", "leaf keys + first packages",
                    "merge-path search", "merge + packages", "round barrier", "count + lengths")
 
@@ -248,6 +288,18 @@ def runner(lib: ctypes.CDLL, kind: str, args, dbg=None):
         fn.argtypes = [*kernels.KERNELS["histogram"][1], *([P] if dbg is not None else []), P]
         extra = [dbg.data_ptr()] if dbg is not None else []
         call = lambda: fn(sym.data_ptr(), n_valid, out.data_ptr(), *extra, stream)
+    elif kind == "gather_rank_canonical":
+        sym, n_valid, maskw, cums, canon16, start, base, max_len, identity = args
+        n = sym.numel()
+        # codes and lens rows, each 16-byte aligned as the kernel needs
+        keep = torch.empty((2, -(-n // 4) * 4), dtype=torch.int32, device=sym.device)
+        out = keep[:, :n]
+        fn = lib.clk_gather_rank_canonical if dbg is not None else lib.htpu_gather_rank_canonical
+        fn.argtypes = [*kernels.KERNELS["gather_rank_canonical"][1], *([P] if dbg is not None else []), P]
+        extra = [dbg.data_ptr()] if dbg is not None else []
+        call = lambda: fn(sym.data_ptr(), n, n_valid, maskw.data_ptr(), cums.data_ptr(), canon16.data_ptr(),
+                          canon16.numel(), start.data_ptr(), base.data_ptr(), max_len, int(identity),
+                          keep[0].data_ptr(), keep[1].data_ptr(), *extra, stream)
     else:
         c, l = args
         out = torch.empty((c.shape[0], c.shape[1] + 1), dtype=torch.int32, device=c.device)
@@ -267,13 +319,17 @@ def main() -> int:
         return 2
     flags = {"--clock", "--variants"}
     clock = "--clock" in sys.argv[1:]
-    given = dict(a.split("=", 1) for a in sys.argv[1:] if a not in flags)
+    only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:] if a.startswith("--only=")]
+    only = set(only[0]) if only else set(SYMBOLS)
+    given = dict(a.split("=", 1) for a in sys.argv[1:] if a not in flags and not a.startswith("--only="))
     card = cs.card_line()
     print(card)
     sources = {name: Path(src) for name, src in given.items()}
     if "--variants" in sys.argv[1:]:
         OUT.mkdir(parents=True, exist_ok=True)
         for name, (src, edits) in VARIANTS.items():
+            if VARIANT_KIND[src] not in only:
+                continue
             (OUT / f"{name}.cu").write_text(clock_source(src, edits))
             sources[name] = OUT / f"{name}.cu"
             given[name] = str(sources[name])
@@ -281,7 +337,10 @@ def main() -> int:
         OUT.mkdir(parents=True, exist_ok=True)
         for name, src, edits in (("clock", "decode.cu", CLOCK_EDITS), ("pm_clock", "package_merge.cu", PM_CLOCK_EDITS),
                                  ("deposit_clock", "deposit.cu", DEPOSIT_CLOCK_EDITS),
-                                 ("hist_clock", "hist.cu", HIST_CLOCK_EDITS)):
+                                 ("hist_clock", "hist.cu", HIST_CLOCK_EDITS),
+                                 ("k9_clock", "rank_gather.cu", K9_CLOCK_EDITS)):
+            if VARIANT_KIND[src] not in only:
+                continue
             (OUT / f"{name}.cu").write_text(clock_source(src, edits))
             sources[name] = OUT / f"{name}.cu"
     libs = build(sources)
@@ -289,7 +348,7 @@ def main() -> int:
     dev = torch.device("cuda")
     sil = silesia_like(cs.BIG, seed=7).tobytes()
     enc_calls = [(cuda_encode, "pack_lanes"), (device_codebook, "package_merge"), (fused, "histogram"),
-                 (cuda_encode, "pack_streams")]
+                 (cuda_encode, "pack_streams"), (fused, "gather_rank_canonical")]
     blob, enc = cs.capture(enc_calls, ht.compress, sil, dev)
     full = zipf_pairs(cs.BIG, 65536, np.random.default_rng(11)).tobytes()
     _, enc_full = cs.capture(enc_calls, ht.compress, full, dev)
@@ -305,6 +364,8 @@ def main() -> int:
                for name, e in (("silesia", enc), ("full", enc_full))}
     sym, n_valid = enc["histogram"]
     odd = (sym.reshape(-1)[1:], n_valid - 5)  # 2 bytes past a 16-byte boundary; n_valid % 8 == 3
+    sym9, n_valid9, *tables9 = enc_wide["gather_rank_canonical"]
+    odd9 = (sym9.reshape(-1)[1:], n_valid9 - 5, *tables9)
     cases = [("decode_groups", "rank mode", dec["decode_groups"]),
              ("decode_groups", "translate mode", dec_tr["decode_groups"]),
              ("decode_groups", "rank mode, 160 groups", (s.repeat(5, 1), n.repeat(5), *rest)),
@@ -318,10 +379,17 @@ def main() -> int:
              ("deposit_streams", "full", deposit["full"]),
              ("histogram", "silesia", enc["histogram"]),
              ("histogram", "full", enc_full["histogram"]),
-             ("histogram", "silesia, odd offset and length", odd)]
+             ("histogram", "silesia, odd offset and length", odd),
+             ("gather_rank_canonical", "rank stage, wide30k", enc_wide["gather_rank_canonical"]),
+             ("gather_rank_canonical", "identity, full", enc_full["gather_rank_canonical"]),
+             ("gather_rank_canonical", "rank stage, wide30k, odd offset and length", odd9)]
     plain = {"package_merge": lambda *a: torch.stack(device_codebook.package_merge_plain(*a)),
-             "deposit_streams": cuda_encode.deposit_streams_plain, "histogram": cuda_hist.histogram_plain}
+             "deposit_streams": cuda_encode.deposit_streams_plain, "histogram": cuda_hist.histogram_plain,
+             "gather_rank_canonical": lambda *a: torch.stack([x.reshape(-1) for x in
+                                                              cuda_gather.gather_rank_canonical_plain(*a)])}
     for kind, variant, args in cases:
+        if kind not in only:
+            continue
         package = runner(libs["package"], kind, args)
         want = package().clone()
         if kind in plain and not torch.equal(want, plain[kind](*args)):
@@ -337,7 +405,7 @@ def main() -> int:
             times[name].append(cs.cuda_ms(fns[name], 10))
         print(f"{kind} [{variant}]: " + ", ".join(f"{k} {' / '.join(f'{x:.4f}' for x in v)} ms"
                                                    for k, v in times.items()) + f" ({card})")
-    if clock:
+    if clock and "decode_groups" in only:
         for label, args in (("rank mode", dec["decode_groups"]), ("translate mode", dec_tr["decode_groups"])):
             ng, B = args[0].shape[0], args[3]
             dbg = torch.zeros((ng, 32, 8), dtype=torch.int64, device=dev)
@@ -351,6 +419,7 @@ def main() -> int:
                   f"instrumented kernel {ms:.4f} ms; cycles a warp: setup {d[:, :, 0].mean():.1f}; a step: "
                   f"decode {per[0]:.1f}, copy wait {per[1]:.1f}, barrier {per[2]:.1f}, scan+refill+copy "
                   f"{per[3]:.1f}, store {d[:, :, 5].mean() / B:.1f} ({card})")
+    if clock and "package_merge" in only:
         for label, args in (("silesia", enc["package_merge"]), ("fibonacci, max_len 32", enc_fib["package_merge"])):
             dbg = torch.zeros(8, dtype=torch.int64, device=dev)
             fn = runner(libs["pm_clock"], "package_merge", args, dbg)
@@ -364,11 +433,17 @@ def main() -> int:
                   f"instrumented kernel {ms:.4f} ms; cycles (thread 0; the rounds' summed over "
                   f"{args[2] - 1} rounds): "
                   + ", ".join(f"{k} {v}" for k, v in cycles.items()) + f" ({card})")
+    if clock:
         splits = [("deposit_streams", "deposit_clock", DEPOSIT_CLOCK_PHASES, variant, args)
                   for variant, args in deposit.items()]
         splits += [("histogram", "hist_clock", HIST_CLOCK_PHASES, variant, args)
                    for variant, args in (("silesia", enc["histogram"]), ("full", enc_full["histogram"]))]
+        splits += [("gather_rank_canonical", "k9_clock", K9_CLOCK_PHASES, variant, args)
+                   for variant, args in (("rank stage, wide30k", enc_wide["gather_rank_canonical"]),
+                                         ("identity, full", enc_full["gather_rank_canonical"]))]
         for kind, lib_name, phases, label, args in splits:
+            if kind not in only:
+                continue
             dbg = torch.zeros((1 << 20, len(phases)), dtype=torch.int64, device=dev)
             fn = runner(libs[lib_name], kind, args, dbg)
             ms = cs.cuda_ms(fn, 10)

@@ -335,6 +335,69 @@ def test_rank_gather_kernels_match_plain(dev, n_unique, max_len, monkeypatch):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("offset,n,n_valid,max_len,n_unique,identity,table", [
+    (1, 3 * 65536 + 11, 3 * 65536 + 6, 18, 20000, False, "whole"),  # view 1 u16 past a 16-byte boundary
+    (3, 3 * 65536 + 11, 3 * 65536 + 6, 18, 40000, True, "whole"),   # 3 u16 past
+    (2, 1001, 998, 26, None, False, "whole"),   # n below one block's batch of 32,768 symbols
+    (4, 5, 0, 18, None, True, "whole"),         # the tail alone, n_valid 0
+    (0, 40003, 0, 26, None, False, "whole"),    # n_valid 0
+    (1, 70001, 3, 1, None, False, "whole"),     # max_len 1: a single symbol
+    (3, 70001, 60000, 1, None, True, "whole"),
+    (0, (1 << 20) + 3, (1 << 20) - 100, 26, None, True, "whole"),  # codes of 26 bits, empty length classes
+    (2, (1 << 24) + 1, (1 << 24) - 7, 26, 16000, False, "whole"),  # several grid steps, unaligned
+    (1, 70001, 69000, 18, 20000, False, "unaligned"),  # tables copied by the threads
+    (3, 70001, 69000, 18, None, True, "unaligned"),
+    (0, 70001, 69000, 18, 20000, False, "ragged"),     # canon16 of 16,382 words: 2 past the bulk copy
+])
+def test_rank_canonical_kernel_edges(dev, offset, n, n_valid, max_len, n_unique, identity, table):
+    """K9 against its plain version on the card's tensors, with absent
+    symbols (a fifth of the positions, any of the 65,536 values) before
+    and past n_valid. Lengths: package-merge of n_unique random
+    frequencies, or (None) three codes at each even length below
+    max_len - 1 and four at max_len, every odd length an empty class.
+    Tables: as the fused route builds them, or (``unaligned``) canon16,
+    mask and cums as views 4 bytes past a 16-byte boundary, or
+    (``ragged``) canon16 cut to a length that is not a multiple of 4."""
+    rng = np.random.default_rng(n + offset)
+    lengths = np.zeros(MAX_SYMBOLS, np.int64)
+    if max_len == 1:
+        lengths[rng.integers(MAX_SYMBOLS)] = 1
+    elif n_unique is None:
+        ls = [l for l in range(2, max_len - 1, 2) for _ in range(3)] + [max_len] * 4
+        lengths[rng.choice(MAX_SYMBOLS, len(ls), replace=False)] = ls
+    else:
+        freqs = np.zeros(MAX_SYMBOLS, np.int64)
+        freqs[rng.choice(MAX_SYMBOLS, n_unique, replace=False)] = rng.integers(1, 500, n_unique)
+        lengths = package_merge_lengths(freqs, max_len).astype(np.int64)
+    t = device_codebook.device_canonical_tables(torch.from_numpy(lengths.astype(np.int32)))
+    if identity:
+        ranks = t.sym_rank.to(torch.int64)
+        maskw = cums = torch.zeros(2048, dtype=torch.int32)
+    else:
+        maskw, cums, dense = cuda_gather.build_rank_select(t.sym_rank, torch.from_numpy(lengths > 0), 32768)
+        ranks = dense.to(torch.int64) & 0xFFFFFFFF
+    canon16 = (ranks[0::2] | (ranks[1::2] << 16)).to(torch.int32)
+    if table == "ragged":
+        canon16 = canon16[:-2]
+    tabs = [x.to(dev) for x in (maskw, cums, canon16)]
+    if table == "unaligned":
+        tabs = [torch.cat([torch.zeros(1, dtype=torch.int32), x]).to(dev)[1:] for x in (maskw, cums, canon16)]
+        assert all(x.data_ptr() % 16 == 4 for x in tabs)
+    buf = rng.choice(np.flatnonzero(lengths), offset + n).astype(np.uint16)
+    buf[offset + rng.choice(n, n // 5)] = rng.integers(0, MAX_SYMBOLS, n // 5)
+    sym = torch.from_numpy(buf.view(np.int16)).to(dev)[offset:]
+    args = (sym, n_valid, *tabs, t.start.to(dev), t.base.to(dev), max_len, identity)
+    kernels.reset_launch_counts()
+    got = cuda_gather.gather_rank_canonical(*args)
+    assert kernels.launch_counts()["gather_rank_canonical"] == 1
+    want = cuda_gather.gather_rank_canonical_plain(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if n <= 1 << 20:
+        cpu = cuda_gather.gather_rank_canonical(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, cpu))
+
+
 @pytest.mark.parametrize("n_table", [1, 2, 3000, 65536])
 def test_gather_u16_kernel_matches_plain(dev, n_table):
     """Any shape, indices far outside the table, element counts that are

@@ -187,6 +187,189 @@ def test_rank_canonical_matches_pallas(n_unique, cap, max_len):
     np.testing.assert_array_equal(lens.numpy(), cb.lengths[sym])
 
 
+def _canon_lengths(max_len, n_unique=None, seed=0):
+    """(65536,) code lengths at most ``max_len``: one symbol of length 1
+    for max_len 1; by default three codes at each even length below
+    ``max_len - 1`` and four at ``max_len`` (every odd length an empty
+    class, equal consecutive start entries); else package-merge lengths
+    of ``n_unique`` random frequencies."""
+    rng = np.random.default_rng(seed)
+    lengths = np.zeros(65536, np.int64)
+    if max_len == 1:
+        lengths[rng.integers(65536)] = 1
+    elif n_unique is None:
+        ls = [l for l in range(2, max_len - 1, 2) for _ in range(3)] + [max_len] * 4
+        lengths[rng.choice(65536, len(ls), replace=False)] = ls
+    else:
+        freqs = np.zeros(65536, np.int64)
+        freqs[rng.choice(65536, n_unique, replace=False)] = rng.integers(1, 500, n_unique)
+        lengths = package_merge_lengths(freqs, max_len).astype(np.int64)
+    assert lengths.max() <= max_len and (2.0 ** -lengths[lengths > 0]).sum() <= 1
+    return lengths
+
+
+def _canon_tables(lengths, identity, cap=16384):
+    """K9's arguments after the symbols, as fused.tiered_code_gather builds
+    them: (maskwords, cums, canon16, start, base)."""
+    t = device_canonical_tables(torch.from_numpy(lengths.astype(np.int32)))
+    if identity:
+        ranks = t.sym_rank.to(torch.int64)
+        m = c = torch.zeros(2048, dtype=torch.int32)
+    else:
+        m, c, d = build_rank_select(t.sym_rank, torch.from_numpy(lengths > 0), cap)
+        ranks = d.to(torch.int64) & 0xFFFFFFFF
+    canon16 = _i32((ranks[0::2] | (ranks[1::2] << 16)).numpy())
+    return m, c, canon16, t.start, t.base
+
+
+def _k9_length(canon, start, max_len):
+    """csrc/rank_gather.cu's length search: lane j holds start[j + 2]
+    (INT32_MAX past max_len); five halving steps count the boundaries at
+    or below canon."""
+    lane = np.arange(32)
+    bound = np.where(lane + 2 <= max_len, np.asarray(start)[np.minimum(lane + 2, 32)], 2**31 - 1)
+    pos = np.zeros(canon.shape, np.int64)
+    for step in (16, 8, 4, 2, 1):
+        pos = np.where(canon >= bound[pos + step - 1], pos + step, pos)
+    return pos + 1
+
+
+def _k9_canonical(s, m, c, canon16, start, base, max_len, identity):
+    """The kernel's len << 26 | code (uint32) of symbols ``s``."""
+    s = s.astype(np.int64)
+    if identity:
+        rank = s
+    else:
+        mw = m.numpy().view(np.uint32).astype(np.int64)[s >> 5]
+        below = (np.int64(1) << (s & 31)) - 1
+        rank = c.numpy().astype(np.int64)[s >> 5] + np.bitwise_count(mw & below)
+    table = canon16.numpy().view(np.uint32).astype(np.int64)
+    pair = table[np.clip(rank >> 1, 0, table.size - 1)]
+    canon = (pair >> ((rank & 1) << 4)) & 0xFFFF
+    length = _k9_length(canon, start.numpy(), max_len)
+    code = (canon - base.numpy().view(np.uint32).astype(np.int64)[length]) & 0xFFFFFFFF
+    return ((length << 26) | code) & 0xFFFFFFFF
+
+
+def _k9_load4(words, offset, k):
+    """load4 of vector k (symbols 4k .. 4k + 3) of a view ``offset`` u16
+    past a 16-byte aligned buffer whose 32-bit words are ``words``: one
+    8-byte load at phase 0, else two or three 4-byte loads and a funnel
+    shift. Returns the four u16 symbols."""
+    addr = 2 * (offset + 4 * k)
+    phase, w = addr % 8, addr // 4
+    if phase == 0 or phase % 4 == 0:
+        x, y = int(words[w]), int(words[w + 1])
+    else:
+        a, b, c = (int(v) for v in words[w:w + 3])
+        x, y = ((b << 32 | a) >> 16) & 0xFFFFFFFF, ((c << 32 | b) >> 16) & 0xFFFFFFFF
+    return [x & 0xFFFF, x >> 16, y & 0xFFFF, y >> 16]
+
+
+def _k9_mirror(words, offset, n, n_valid, tables, max_len, identity, threads, grid, vecs=8):
+    """csrc/rank_gather.cu's K9 walk in numpy: thread t takes the vectors
+    t + (j * vecs + u) * stride of step j while its warp's first is below
+    n_vec = n // 4 (the last step's lanes past n_vec load a clamped vector
+    and store nothing), then the n % 4 tail one symbol a thread. Returns
+    (packed output, times each position was written, symbols as loaded)."""
+    n_vec, stride = n // 4, grid * threads
+    out = np.zeros(n, np.int64)
+    written = np.zeros(n, np.int64)
+    loaded = np.full(n, -1, np.int64)
+    for t in range(stride):
+        warp_first = t - t % 32
+        j = 0
+        while warp_first + j * vecs * stride < n_vec:
+            for u in range(vecs):
+                k = t + (j * vecs + u) * stride
+                syms = _k9_load4(words, offset, min(k, n_vec - 1))
+                if k < n_vec:
+                    packed = _k9_canonical(np.array(syms), *tables, max_len, identity)
+                    valid = max(min(n_valid - 4 * k, 4), 0)
+                    packed[valid:] = 0
+                    out[4 * k:4 * k + 4] = packed
+                    written[4 * k:4 * k + 4] += 1
+                    loaded[4 * k:4 * k + 4] = syms
+            j += 1
+        i = 4 * n_vec + t
+        while i - t % 32 < n:
+            if i < n:
+                sym = int(words[(2 * (offset + i)) // 4]) >> (16 * ((offset + i) % 2)) & 0xFFFF
+                out[i] = _k9_canonical(np.array([sym]), *tables, max_len, identity)[0] if i < n_valid else 0
+                written[i] += 1
+                loaded[i] = sym
+            i += stride
+    return out, written, loaded
+
+
+@pytest.mark.parametrize("offset,n,n_valid,threads,grid,identity", [
+    (0, 4003, 4003, 32, 1, False),   # aligned view, n % 4 == 3, four steps a thread
+    (1, 2002, 1999, 64, 3, True),    # three 4-byte loads a vector, n_valid % 4 == 3
+    (2, 2001, 1000, 32, 1, False),   # two 4-byte loads, two steps a thread
+    (3, 2000, 2000, 32, 3, True),    # three loads, whole vectors only
+    (4, 1997, 1997, 64, 2, False),   # 8-byte loads past an 8-byte boundary
+    (5, 3, 3, 64, 1, False),         # the tail alone
+    (6, 2005, 0, 32, 2, True),       # n_valid 0
+    (7, 1000, 4, 96, 1, False),      # fewer vectors than threads
+])
+def test_rank_canonical_kernel_split(offset, n, n_valid, threads, grid, identity):
+    """The kernel's walk writes every position once, loads each symbol
+    right at any 2-byte offset of the view, and equals the plain version
+    and the JAX function in interpret mode, absent symbols included."""
+    rng = np.random.default_rng(offset)
+    lengths = _canon_lengths(18, n_unique=3000, seed=offset)
+    present = np.flatnonzero(lengths)
+    buf = rng.choice(present, -(-(offset + n) // 8) * 8 + 8).astype(np.uint16)
+    buf[offset + rng.choice(n, n // 5)] = rng.integers(0, 65536, n // 5)  # absent symbols too
+    view = buf[offset:offset + n]
+    words = np.frombuffer(buf.tobytes(), "<u4")
+    tables = _canon_tables(lengths, identity)
+    got, written, loaded = _k9_mirror(words, offset, n, n_valid, tables, 18, identity, threads, grid)
+    assert (written == 1).all()
+    np.testing.assert_array_equal(loaded, view)
+    codes, lens = gather_rank_canonical(_u16(view), n_valid, *tables, 18, identity)
+    np.testing.assert_array_equal(got & ((1 << 26) - 1), codes.numpy().view(np.uint32))
+    np.testing.assert_array_equal(got >> 26, lens.numpy())
+    m, c, canon16, start, base = tables
+    want = np.asarray(jpg.gather_rank_canonical(
+        jnp.asarray(view.astype(np.int32)), jnp.asarray(m.numpy().view(np.uint32)), jnp.asarray(c.numpy()),
+        jnp.asarray(canon16.numpy().view(np.uint32)), jnp.asarray(start.numpy()),
+        jnp.asarray(base.numpy().view(np.uint32)), max_len=18, interpret=True, identity_rank=identity,
+        per_cell=1,
+    )).astype(np.int64)
+    np.testing.assert_array_equal(got, np.where(np.arange(n) < n_valid, want, 0))
+
+
+@pytest.mark.parametrize("max_len,n_unique,identity", [
+    (1, None, False), (1, None, True), (2, None, False), (18, None, True),
+    (18, 4000, False), (26, None, False), (26, None, True), (26, 16000, True),
+])
+def test_rank_canonical_length_search(max_len, n_unique, identity):
+    """The kernel's register binary search for the length, and its code,
+    against the plain version on every one of the 65,536 symbols (the
+    absent ones too) and against the JAX function in interpret mode on the
+    present symbols and 2,048 absent ones, with empty length classes."""
+    lengths = _canon_lengths(max_len, n_unique, seed=max_len)
+    tables = _canon_tables(lengths, identity)
+    sym = np.arange(65536, dtype=np.uint16)
+    got = _k9_canonical(sym, *tables, max_len, identity)
+    codes, lens = gather_rank_canonical(_u16(sym), sym.size, *tables, max_len, identity)
+    np.testing.assert_array_equal(got & ((1 << 26) - 1), codes.numpy().view(np.uint32))
+    np.testing.assert_array_equal(got >> 26, lens.numpy())
+    present = lengths > 0
+    np.testing.assert_array_equal((got >> 26)[present], lengths[present])
+    absent = np.random.default_rng(max_len).choice(np.flatnonzero(~present), 2048, replace=False)
+    some = np.concatenate([np.flatnonzero(present), absent])
+    m, c, canon16, start, base = tables
+    want = np.asarray(jpg.gather_rank_canonical(
+        jnp.asarray(some.astype(np.int32)), jnp.asarray(m.numpy().view(np.uint32)), jnp.asarray(c.numpy()),
+        jnp.asarray(canon16.numpy().view(np.uint32)), jnp.asarray(start.numpy()),
+        jnp.asarray(base.numpy().view(np.uint32)), max_len=max_len, interpret=True, identity_rank=identity,
+        per_cell=1,
+    )).astype(np.int64)
+    np.testing.assert_array_equal(got[some], want)
+
+
 @pytest.mark.parametrize("nalpha", [100, 256, 257, 1024])
 def test_fused_encode_matches_jax_encode_device_bytes(nalpha):
     """Streams, counts and lengths of the whole fused encode. The JAX side
