@@ -52,7 +52,20 @@ Phases, each printing one line or a few:
      32-bit limit), the reference route (the ``.compressed`` format at 32
      MiB, and its host decode of a 1 MiB prefix) and the ops route (the
      in-kernel deposit against ``pack_streams``, the unpacked decode
-     against the packed one, the on-device roundtrip at 32 MiB). Every
+     against the packed one, the on-device roundtrip at 32 MiB), the
+     front-end route (an HTPS stream of 64 MiB silesia-like in 16 MiB
+     chunks with ``pipeline`` 2 and 1, which must write the same bytes,
+     with their wall times; HTPX archives of the 32 MiB silesia-like in 4
+     shards in both codebook modes; the command line in-process for
+     compress, ``--stream-mb 16``, info, decompress, verify, archive and
+     transcode, each file equal to the API's output, and one ``python -m
+     huffman_tpu_torch verify``) and the distributed route (an NCCL
+     process group of world size 1 on the card, destroyed at its end:
+     ``distributed_encode_streams`` of silesia-like and of the full
+     alphabet, ``distributed_decode_groups`` in rank mode at the full
+     alphabet, packed and unpacked, ``distributed_encode`` /
+     ``distributed_decode`` and ``compress_decompress_step``, each equal
+     to the single-device functions on the same tensors). Every
      container must equal the one the port's CPU path (the plain versions,
      held equal to the JAX package by the CPU tests) writes, and every
      decompress must return the input. Each path's kernels must all have
@@ -73,6 +86,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -104,6 +118,11 @@ WIDE_PATH = ("pack_lanes", "histogram", "package_merge", "decode_groups")
 REFERENCE_PATH = ("gather_codes",)
 OPS_PATH = ("deposit_streams", "gather_u16", "pack_lanes", "decode_groups", "gather_u16_pairs",
             "histogram", "package_merge", "gather_rank_select")
+FRONT_END_PATH = ("histogram", "package_merge", "gather_rank_select", "pack_lanes", "decode_groups",
+                  "gather_u16_pairs", "gather_codes")
+DISTRIBUTED_PATH = ("histogram", "package_merge", "gather_rank_select", "gather_rank_canonical",
+                    "pack_lanes", "decode_groups", "gather_u16_pairs", "gather_u16", "gather_codes")
+HTPS_BYTES = 64 << 20
 
 
 def card_line() -> str:
@@ -565,6 +584,159 @@ def main() -> int:
               f"{t_rt:.3f} s ({card})")
 
     path_counts.append(run_path("ops route", OPS_PATH, {}, extra=ops_route))
+
+    def timed(fn, *args, repeat=3, **kwargs):
+        """(result, median wall seconds) of ``fn``, synchronised."""
+        walls = []
+        for _ in range(repeat):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return result, statistics.median(walls)
+
+    def front_end_route():
+        import tempfile
+
+        from huffman_tpu_torch import cli
+        from huffman_tpu_torch.container import sharded, streaming
+
+        big = silesia_like(HTPS_BYTES, seed=7).tobytes()
+        htps = {}
+        for p in (2, 1):
+            htps[p], c = timed(streaming.compress_bytes, big, pipeline=p)
+            out, d = timed(streaming.decompress_bytes, htps[p], pipeline=p)
+            if out != big:
+                raise AssertionError(f"HTPS pipeline={p}: decompress_bytes(compress_bytes(x)) != x")
+            print(f"htps silesia_like_64MiB pipeline={p}: {len(big)} B -> {len(htps[p])} B in "
+                  f"{-(-len(big) // streaming.DEFAULT_CHUNK_BYTES)} chunks; median of 3: compress {c:.4f} s "
+                  f"({len(big) / c / 1e9:.3f} GB/s), decompress {d:.4f} s ({len(big) / d / 1e9:.3f} GB/s) "
+                  f"({card})")
+        if htps[1] != htps[2]:
+            raise AssertionError("HTPS: pipeline=1 and pipeline=2 wrote different bytes")
+        if htps[2] != streaming.compress_bytes(big, device="cpu"):
+            raise AssertionError("HTPS: card stream differs from the CPU path's")
+        del big, htps
+        for mode in ("global", "per-shard"):
+            blob, c = timed(sharded.compress, silesia, n_shards=4, codebook_mode=mode)
+            out, d = timed(ht.decompress, blob)
+            if out != silesia:
+                raise AssertionError(f"HTPX {mode}: decompress(compress(x)) != x")
+            if blob != sharded.compress(silesia, n_shards=4, codebook_mode=mode, device="cpu"):
+                raise AssertionError(f"HTPX {mode}: card archive differs from the CPU path's")
+            print(f"htpx silesia_like_32MiB {mode}, 4 shards: {len(silesia)} B -> {len(blob)} B; "
+                  f"median of 3: compress {len(silesia) / c / 1e9:.3f} GB/s, decompress "
+                  f"{len(silesia) / d / 1e9:.3f} GB/s ({card})")
+        # The command line in-process, each file against the API's output on
+        # the card (held against the CPU path above and in the fused and
+        # reference routes), then `python -m huffman_tpu_torch verify`.
+        with tempfile.TemporaryDirectory() as tmp:
+            src = f"{tmp}/s.bin"
+            with open(src, "wb") as f:
+                f.write(silesia)
+            want = {
+                "s.bin.htpu": ht.compress(silesia),
+                "s.htps": streaming.compress_bytes(silesia),
+                "s.compressed": ht.compress_reference(silesia),
+                "t.compressed": ht.compress_reference(silesia),
+                "s.out": silesia,
+            }
+            t0 = time.perf_counter()
+            for argv in (["compress", src], ["compress", src, "--stream-mb", "16", "-o", f"{tmp}/s.htps"],
+                         ["info", f"{tmp}/s.htps"], ["decompress", f"{tmp}/s.htps", "-o", f"{tmp}/s.out"],
+                         ["verify", f"{tmp}/s.bin.htpu"], ["archive", src, "-o", f"{tmp}/s.compressed"],
+                         ["info", f"{tmp}/s.compressed"],
+                         ["transcode", f"{tmp}/s.bin.htpu", "--to", "reference", "-o", f"{tmp}/t.compressed"]):
+                if cli.main(argv) != 0:
+                    raise AssertionError(f"cli {argv[0]}: non-zero exit")
+            t_cli = time.perf_counter() - t0
+            for name, blob in want.items():
+                with open(f"{tmp}/{name}", "rb") as f:
+                    if f.read() != blob:
+                        raise AssertionError(f"cli: {name} differs from the API's output")
+            r = subprocess.run([sys.executable, "-m", "huffman_tpu_torch", "verify", f"{tmp}/s.htps"],
+                               capture_output=True, text=True, timeout=300,
+                               cwd=str(Path(__file__).resolve().parent))
+            if r.returncode != 0 or not r.stdout.startswith(f"OK: {len(silesia)} bytes"):
+                raise AssertionError(f"python -m huffman_tpu_torch verify: {r.returncode} {r.stderr[-2000:]}")
+            print(f"cli: compress, compress --stream-mb 16, info, decompress, verify, archive, transcode "
+                  f"of silesia_like_32MiB in {t_cli:.2f} s, each file equal to the API's; "
+                  f"python -m huffman_tpu_torch verify: {r.stdout.strip()} ({card})")
+
+    path_counts.append(run_path("front-end route", FRONT_END_PATH, {}, extra=front_end_route))
+
+    def distributed_route():
+        import socket
+
+        import torch.distributed as dist
+
+        from huffman_tpu_torch.ops.tables import tables_from_codebook
+        from huffman_tpu_torch.parallel import pipeline as pp
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+        try:
+            B = 512
+            tabs = {}
+            for name, data in (("silesia_like", silesia), ("full_alphabet", full)):
+                sym = torch.frombuffer(bytearray(data), dtype=torch.int16).to(dev).reshape(-1, B)
+                n_pairs = sym.numel() - 3
+                (streams, counts, lengths, ok), t = timed(pp.distributed_encode_streams, sym, n_pairs)
+                r = fused.encode_device(sym, n_pairs, 18)
+                if not (bool(ok) and torch.equal(streams, r["streams"]) and torch.equal(lengths, r["lengths"])
+                        and torch.equal(counts, r["counts"].to(torch.int32))):
+                    raise AssertionError(f"distributed_encode_streams [{name}] differs from encode_device")
+                if not torch.equal(pp.distributed_histogram(sym.reshape(-1)[:n_pairs]),
+                                   cuda_hist.histogram(sym, n_pairs)):
+                    raise AssertionError(f"distributed_histogram [{name}] differs from histogram")
+                cb = bf.Codebook.from_lengths(lengths.cpu().numpy().astype(np.uint8))
+                tabs[name] = (sym, n_pairs, tables_from_codebook(cb, dev), streams)
+                print(f"distributed_encode_streams {name}_32MiB, NCCL world 1: {int(counts.sum())} words, "
+                      f"{int((lengths > 0).sum())} symbols; median of 3 {t * 1e3:.2f} ms "
+                      f"({len(data) / t / 1e9:.3f} GB/s), equal to encode_device ({card})")
+
+            sym, n_pairs, t_full, streams = tabs["full_alphabet"]
+            n_real = torch.full((streams.shape[0],), 1024, dtype=torch.int32, device=dev)
+            got, t = timed(pp.distributed_decode_groups, streams, n_real, t_full, B, False)
+            want = cuda_gather.gather_u16_pairs(
+                cuda_decode.decode_groups(streams, n_real, t_full, B, False), t_full.sym_order)
+            unpacked = pp.distributed_decode_groups(streams, n_real, t_full, B, False, packed_out=False)
+            if not (torch.equal(got, want) and torch.equal(
+                    unpacked, cuda_decode.decode_groups(streams, n_real, t_full, B, False, False))):
+                raise AssertionError("distributed_decode_groups (rank mode, full alphabet) differs")
+            sym_out = got.reshape(streams.shape[0], B // 2, 1024).transpose(1, 2).contiguous()
+            if not torch.equal(sym_out.view(torch.int16).reshape(-1)[:n_pairs], sym.reshape(-1)[:n_pairs]):
+                raise AssertionError("distributed_decode_groups (rank mode, full alphabet): wrong symbols")
+            print(f"distributed_decode_groups full_alphabet_32MiB, rank mode (K1 + K2), NCCL world 1: "
+                  f"median of 3 {t * 1e3:.2f} ms ({len(full) / t / 1e9:.3f} GB/s), equal to "
+                  f"decode_groups + gather_u16_pairs, unpacked (K5) too ({card})")
+
+            sym, n_pairs, t_sil, _ = tabs["silesia_like"]
+            (slab, bits), t_enc = timed(pp.distributed_encode, sym, n_pairs, t_sil, B)
+            codes, lens = cuda_gather.gather_table_codes(sym, t_sil, n_pairs)
+            if not (torch.equal(slab, cuda_encode.pack_blocks(codes, lens, B))
+                    and torch.equal(bits, lens.sum(dim=1, dtype=torch.int32))):
+                raise AssertionError("distributed_encode differs from gather_table_codes + pack_blocks")
+            out, t_dec = timed(pp.distributed_decode, slab, t_sil, B, repeat=1)
+            valid = torch.arange(sym.numel(), device=dev).reshape(sym.shape) < n_pairs
+            if not torch.equal(out[valid], (sym.to(torch.int32) & 0xFFFF)[valid]):
+                raise AssertionError("distributed_decode: wrong symbols")
+            (hist, slab2, bits2, ok), t_step = timed(pp.compress_decompress_step, sym, n_pairs, t_sil, B,
+                                                     repeat=1)
+            if not (int(ok) == 1 and torch.equal(slab2, slab) and torch.equal(bits2, bits)
+                    and torch.equal(hist, cuda_hist.histogram(sym, n_pairs))):
+                raise AssertionError("compress_decompress_step differs from the single-device functions")
+            print(f"distributed_encode / distributed_decode / compress_decompress_step silesia_like_32MiB "
+                  f"(v1 slabs, W={B}), NCCL world 1: {t_enc * 1e3:.2f} ms (median of 3) / "
+                  f"{t_dec * 1e3:.1f} ms / {t_step * 1e3:.1f} ms, ok={int(ok)}, equal to the single-device "
+                  f"functions ({card})")
+        finally:
+            dist.destroy_process_group()
+
+    path_counts.append(run_path("distributed route", DISTRIBUTED_PATH, {}, extra=distributed_route))
 
     # Last, so that no timing runs after the profiler: the chain of
     # dependent launches of one package-merge call, as device kernels.

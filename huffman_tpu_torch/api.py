@@ -1,19 +1,14 @@
 """Public compress/decompress of the PyTorch port (counterpart of
-huffman_tpu/api.py): the native HTPU container (v2 and v1) and the
-reference ``.compressed`` format."""
+huffman_tpu/api.py): the native HTPU container (v2 and v1), HTPX sharded
+archives, HTPS streams, and the reference ``.compressed`` format."""
 
 from __future__ import annotations
 
 import torch
 
 from .codebook import Codebook
-from .container import block_format, detect, reference_format
+from .container import block_format, detect, reference_format, sharded, streaming
 from .device import resolve_device
-
-_NOT_PORTED = {
-    "htps": "HTPS stream containers: ROADMAP.md, Queue 1, front-ends and HTPS/HTPX",
-    "htpx": "HTPX sharded archives: ROADMAP.md, Queue 1, front-ends and HTPS/HTPX",
-}
 
 
 def compress(
@@ -24,6 +19,7 @@ def compress(
     codebook: Codebook | None = None,
     mode: str = "interleaved",
     embed_codebook: bool = True,
+    n_shards: int | None = None,
 ) -> bytes:
     """Compress ``data`` to an HTPU container, v2 (``mode="interleaved"``)
     or v1 (``mode="blocks"``), encoding on ``device`` (the card unless the
@@ -32,10 +28,19 @@ def compress(
     arguments. ``codebook`` is the port's ``Codebook``; one built by the
     JAX package carries over as ``Codebook.from_lengths(np.asarray(
     jax_codebook.lengths))``. ``embed_codebook=False`` leaves the given
-    codebook out of the container; ``decompress`` then needs it."""
+    codebook out of the container; ``decompress`` then needs it.
+    ``n_shards`` > 1 writes an HTPX sharded archive (global codebook),
+    whose shards build their own containers: it takes no ``codebook``."""
+    dev = resolve_device(device)
+    if n_shards and n_shards > 1:
+        if codebook is not None or not embed_codebook:
+            raise ValueError("n_shards > 1 builds its own codebook: pass no codebook")
+        return sharded.compress(
+            data, n_shards=n_shards, device=dev, block_symbols=block_symbols,
+            max_code_len=max_code_len, mode=mode,
+        )
     return block_format.compress(
-        data, resolve_device(device), block_symbols, max_code_len, codebook,
-        mode, embed_codebook,
+        data, dev, block_symbols, max_code_len, codebook, mode, embed_codebook,
     )
 
 
@@ -45,15 +50,17 @@ def decompress(
     codebook: Codebook | None = None,
     verify_crc: bool = True,
 ) -> bytes:
-    """Decompress an HTPU container, decoding on ``device`` (the card
-    unless the caller asks for "cpu"). ``codebook`` is needed for a
-    container that stores none; ``verify_crc=False`` skips the CRC32
-    check. HTPS and HTPX containers raise ``NotImplementedError``; other
-    blobs raise ``ValueError``."""
+    """Decompress a native container (HTPU block, HTPX sharded archive, or
+    HTPS stream, told apart by magic), decoding on ``device`` (the card
+    unless the caller asks for "cpu"). ``codebook`` (for an HTPU container
+    that stores none) and ``verify_crc=False`` (skip the CRC32 check)
+    apply to HTPU containers. Other blobs raise ``ValueError``."""
     dev = resolve_device(device)
     kind = detect(blob)
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(f"not ported yet: {_NOT_PORTED[kind]}")
+    if kind == "htpx":
+        return sharded.decompress(blob, dev)
+    if kind == "htps":
+        return streaming.decompress_bytes(blob, device=dev)
     return block_format.decompress(blob, dev, verify_crc=verify_crc, codebook=codebook)
 
 

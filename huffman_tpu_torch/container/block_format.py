@@ -74,6 +74,21 @@ def _codebook_to_header(cb: Codebook) -> bytes:
     return counts.tobytes() + cb.sym_order.astype("<u2").tobytes()
 
 
+def codebook_from_blob(cb_blob: bytes) -> Codebook:
+    """Parse a standalone counts++symbols codebook blob (the layout
+    _codebook_to_header writes; used by sharded archives)."""
+    counts = np.frombuffer(cb_blob[:_COUNTS_BYTES], dtype="<u4")
+    n = int(counts.sum())
+    syms = np.frombuffer(cb_blob[_COUNTS_BYTES : _COUNTS_BYTES + 2 * n], dtype="<u2")
+    if syms.size != n:
+        raise ValueError("truncated codebook blob")
+    lengths = np.zeros(MAX_SYMBOLS, dtype=np.uint8)
+    lengths[syms] = np.repeat(
+        np.arange(1, MAX_CODE_LEN + 1, dtype=np.uint8), counts.astype(np.int64)
+    )
+    return Codebook.from_lengths(lengths)
+
+
 def _codebook_from_header(blob: bytes, n_unique: int) -> tuple[Codebook, int]:
     counts = np.frombuffer(blob[_HEADER_BYTES : _HEADER_BYTES + _COUNTS_BYTES], dtype="<u4")
     off = _HEADER_BYTES + _COUNTS_BYTES

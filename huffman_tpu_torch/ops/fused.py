@@ -1,6 +1,8 @@
 """The fused device encode: counterpart of huffman_tpu/ops/fused.py
 (``tiered_code_gather``, ``encode_device``, ``encode_device_bytes``,
-``roundtrip_device``, ``encode_device_auto``).
+``roundtrip_device``, ``encode_device_auto``), and ``encode_from_histogram``,
+the encode from the histogram on, which the distributed encode
+(``parallel/pipeline.py``) runs on an all-reduced histogram.
 
 From the uploaded bytes to the interleaved streams with no host codebook:
 histogram (K6) -> package-merge lengths at the input's alphabet tier (K7)
@@ -100,12 +102,25 @@ def encode_device(
     (``streams`` (ngroups, 2048 + words_cap) int32 bits and ``counts``
     (ngroups,) words per group), the dense code ``lengths`` (65536,) int32,
     the histogram ``hist`` and the alphabet ``tier`` that ran."""
+    hist = histogram(symbols, n_pairs)
+    return {**encode_from_histogram(symbols, n_pairs, hist, max_len), "hist": hist}
+
+
+def encode_from_histogram(
+    symbols: torch.Tensor,  # (n_lanes, B) int16 bits, n_lanes % 1024 == 0
+    n_valid: int,           # real symbols (row-major); the rest is padding
+    hist: torch.Tensor,     # (65536,) int32 histogram the codebook is built from
+    max_len: int,
+) -> dict:
+    """``encode_device`` from the codebook's histogram on: the codebook
+    comes from ``hist``, which may count more than these symbols (the
+    all-reduced histogram of a distributed encode). Returns ``streams``,
+    ``counts``, ``lengths`` and ``tier`` as ``encode_device`` does."""
     n_lanes, B = symbols.shape
     if n_lanes % GROUP_LANES:
         raise ValueError("n_lanes must be a multiple of GROUP_LANES")
     if not 1 <= max_len <= MAX_CODE_LEN:
         raise ValueError(f"max_len={max_len} outside [1, {MAX_CODE_LEN}]")
-    hist = histogram(symbols, n_pairs)
     n_unique = int((hist > 0).sum())  # the one read that picks the tier
     if n_unique > (1 << max_len):
         raise ValueError(
@@ -113,18 +128,17 @@ def encode_device(
         )
     if max_len <= PACKED_MAX_LEN:
         lengths, codes, lens, cap = tiered_code_gather(
-            hist, n_unique, symbols, n_pairs, max_len=max_len
+            hist, n_unique, symbols, n_valid, max_len=max_len
         )
     else:
         cap = tier_for(n_unique)
         lengths = device_code_lengths(hist, max_len, cap, n_unique)
         tabs = device_canonical_tables(lengths)
-        codes, lens = enc.gather_codes(symbols, tabs.enc_codes, tabs.enc_lens, n_pairs)
+        codes, lens = enc.gather_codes(symbols, tabs.enc_codes, tabs.enc_lens, n_valid)
     min_len = torch.where(lengths > 0, lengths, MAX_CODE_LEN).min()
-    n_real = -(-n_pairs // B)
-    streams, counts = encode_streams(codes, lens, n_pairs, min_len, n_real)
-    return {"streams": streams, "counts": counts, "lengths": lengths,
-            "hist": hist, "tier": cap}
+    n_real = -(-n_valid // B)
+    streams, counts = encode_streams(codes, lens, n_valid, min_len, n_real)
+    return {"streams": streams, "counts": counts, "lengths": lengths, "tier": cap}
 
 
 def encode_device_bytes(

@@ -169,14 +169,17 @@ def launch(name: str, *args) -> None:
     if rc != 0:
         msg = lib.htpu_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
-    _launches[name] += 1
+    with _lock:  # threads launch at once (the HTPS pipeline): no lost count
+        _launches[name] += 1
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, by kernel name."""
-    return dict(_launches)
+    with _lock:
+        return dict(_launches)
 
 
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    with _lock:
+        for name in _launches:
+            _launches[name] = 0

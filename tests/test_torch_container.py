@@ -70,16 +70,21 @@ def test_caller_codebook_and_odd_block_symbols():
     assert huffman_tpu_torch.decompress(ours, "cpu") == data
 
 
-def test_other_container_kinds_are_not_ported():
-    from huffman_tpu.container import streaming
+@pytest.mark.parametrize("kind", ["htpx_global", "htpx_per_shard", "htps"])
+def test_jax_htpx_and_htps_blobs_decode(kind):
+    """``decompress`` routes the JAX package's sharded archives and
+    streams by magic, as ``huffman_tpu.decompress`` does."""
+    from huffman_tpu.container import sharded, streaming
 
-    data = _inputs()["zipf300"][:20_000]
-    for blob in (
-        huffman_tpu.compress(data, backend="numpy", n_shards=2),
-        streaming.compress_bytes(data, backend="numpy"),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            huffman_tpu_torch.decompress(blob, "cpu")
+    data = _inputs()["zipf300"][:20_001]
+    blob = {
+        "htpx_global": lambda: huffman_tpu.compress(data, backend="numpy", n_shards=2),
+        "htpx_per_shard": lambda: sharded.compress(
+            data, n_shards=3, codebook_mode="per-shard", backend="numpy"
+        ),
+        "htps": lambda: streaming.compress_bytes(data, chunk_bytes=6000, backend="numpy"),
+    }[kind]()
+    assert huffman_tpu_torch.decompress(blob, "cpu") == data
 
 
 @pytest.mark.parametrize("mode", ["interleaved", "blocks"])

@@ -520,3 +520,123 @@ def test_v1_reference_and_deep_codes_at_benchmark_size(dev):
         assert blob == huffman_tpu.compress(fib, backend="numpy", max_code_len=None, mode=mode)
         assert huffman_tpu_torch.decompress(blob, dev) == fib
     assert huffman_tpu_torch.compress_reference(fib, dev) == huffman_tpu.compress_reference(fib)
+
+
+def test_htps_and_htpx_on_the_card_equal_the_host_path(dev):
+    """HTPS chunks of 4 MiB (the fused route, two in flight) and HTPX
+    archives in both codebook modes (global: the host-codebook route;
+    per-shard: fused shards)."""
+    from huffman_tpu.container import sharded as jax_sharded
+    from huffman_tpu.container import streaming as jax_streaming
+    from huffman_tpu_torch.container import sharded, streaming
+
+    data = silesia_like(12 << 20, seed=7).tobytes() + b"\x01"
+    kernels.reset_launch_counts()
+    blobs = [streaming.compress_bytes(data, chunk_bytes=4 << 20, device=dev, pipeline=p)
+             for p in (1, 2)]
+    counts = kernels.launch_counts()
+    # Three fused chunks a call; the one-byte fourth chunk has no pairs.
+    assert counts["histogram"] == 6 and counts["pack_lanes"] == 6
+    want = jax_streaming.compress_bytes(data, chunk_bytes=4 << 20, backend="numpy")
+    assert blobs == [want, want]
+    for p in (1, 2):
+        assert streaming.decompress_bytes(want, device=dev, pipeline=p) == data
+    for mode in ("global", "per-shard"):
+        kernels.reset_launch_counts()
+        blob = sharded.compress(data, n_shards=3, codebook_mode=mode, device=dev)
+        counts = kernels.launch_counts()
+        assert bool(counts["gather_codes"]) == (mode == "global")
+        assert bool(counts["histogram"]) == (mode == "per-shard")
+        assert blob == jax_sharded.compress(data, n_shards=3, codebook_mode=mode, backend="numpy")
+        assert huffman_tpu_torch.decompress(blob, dev) == data
+
+
+def test_cli_on_the_card_equals_the_cpu(dev, tmp_path, monkeypatch, capsys):
+    from huffman_tpu_torch import cli
+
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "s.bin").write_bytes(silesia_like(5 << 20, seed=3).tobytes())
+    steps = [["compress", "s.bin", "-o", "{d}.htpu"], ["compress", "s.bin", "-o", "{d}.htpx", "--shards", "3"],
+             ["compress", "s.bin", "-o", "{d}.htps", "--stream-mb", "2"],
+             ["archive", "s.bin", "-o", "{d}.compressed"],
+             ["decompress", "{d}.htps", "-o", "{d}.out"], ["verify", "{d}.htpx"],
+             ["transcode", "{d}.compressed", "-o", "{d}.t.htpu"]]
+    outs = {}
+    for device in ("cpu", "cuda"):
+        for argv in steps:
+            assert cli.main([a.format(d=device) for a in argv] + ["--device", device]) == 0, argv
+        outs[device] = capsys.readouterr().out.replace(device, "D")
+    assert outs["cuda"] == outs["cpu"]
+    for ext in ("htpu", "htpx", "htps", "compressed", "out", "t.htpu"):
+        assert (tmp_path / f"cuda.{ext}").read_bytes() == (tmp_path / f"cpu.{ext}").read_bytes(), ext
+    assert (tmp_path / "cuda.out").read_bytes() == (tmp_path / "s.bin").read_bytes()
+
+
+@pytest.fixture(scope="module")
+def nccl_world():
+    """A world-size-1 NCCL process group on the card (the machine has one),
+    and a gloo group over the same rank."""
+    import socket
+
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        yield dist.new_group(backend="gloo")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_distribution_at_world_size_1_equals_single_device(nccl_world):
+    """Every function of parallel/pipeline.py over NCCL equals the
+    single-device functions on the same tensors; a gloo group refuses
+    CUDA tensors and NCCL CPU ones."""
+    from huffman_tpu_torch.parallel import pipeline as pp
+
+    dev = torch.device("cuda")
+    for data, n_unique in ((silesia_like(4 << 20, seed=7), None),
+                           (zipf_pairs(4 << 20, 65536, np.random.default_rng(11)), 65536)):
+        raw = torch.from_numpy(data.view(np.int16).copy()).to(dev)
+        n_pairs = raw.numel() - 7
+        sym = raw.reshape(-1, 512)
+        hist = pp.distributed_histogram(sym.reshape(-1)[:n_pairs])
+        assert torch.equal(hist, cuda_hist.histogram(sym, n_pairs))
+        streams, counts, lengths, ok = pp.distributed_encode_streams(sym, n_pairs)
+        r = fused.encode_device(sym, n_pairs, 18)
+        assert bool(ok) and torch.equal(lengths, r["lengths"])
+        assert torch.equal(counts, r["counts"].to(torch.int32)) and torch.equal(streams, r["streams"])
+        if n_unique:
+            assert int((lengths > 0).sum()) == n_unique
+
+        cb = bf.Codebook.from_lengths(lengths.cpu().numpy().astype(np.uint8))
+        t = tables_from_codebook(cb, dev)
+        n_real = torch.tensor([GROUP_LANES] * (sym.shape[0] // GROUP_LANES), dtype=torch.int32, device=dev)
+        got = pp.distributed_decode_groups(streams, n_real, t, 512, translate=False)
+        want = cuda_gather.gather_u16_pairs(cuda_decode.decode_groups(streams, n_real, t, 512, False),
+                                            t.sym_order)
+        assert torch.equal(got, want)
+        unpacked = pp.distributed_decode_groups(streams, n_real, t, 512, False, packed_out=False)
+        assert torch.equal(unpacked, cuda_decode.decode_groups(streams, n_real, t, 512, False, False))
+
+        small = sym[:512]
+        n_small = small.numel() - 5
+        slab, bits = pp.distributed_encode(small, n_small, t, 512)
+        codes, lens = cuda_gather.gather_table_codes(small, t, n_small)
+        assert torch.equal(slab, cuda_encode.pack_blocks(codes, lens, 512))
+        assert torch.equal(bits, lens.sum(dim=1, dtype=torch.int32))
+        out = pp.distributed_decode(slab, t, 512)
+        valid = torch.arange(small.numel(), device=dev).reshape(small.shape) < n_small
+        assert torch.equal(out[valid], (small.to(torch.int32) & 0xFFFF)[valid])
+        h, slab2, bits2, ok2 = pp.compress_decompress_step(small, n_small, t, 512)
+        assert int(ok2) == 1 and torch.equal(slab2, slab) and torch.equal(bits2, bits)
+        assert torch.equal(h, cuda_hist.histogram(small, n_small))
+
+    with pytest.raises(ValueError, match="cannot take"):
+        pp.distributed_histogram(sym.reshape(-1), group=nccl_world)
+    with pytest.raises(ValueError, match="cannot take"):
+        pp.distributed_histogram(sym.reshape(-1).cpu())

@@ -143,3 +143,60 @@ def test_every_kernel_symbol_has_a_source():
     text = "".join(p.read_text() for p in kernels.CSRC.glob("*.cu"))
     for symbol, _ in kernels.KERNELS.values():
         assert f'extern "C" int {symbol}(' in text
+
+
+def test_front_ends_and_distribution_run_without_jax():
+    """The CLI, HTPS, HTPX and the distribution layer load neither JAX nor
+    any module of the JAX package."""
+    code = (
+        "import sys, numpy as np\n"
+        "import huffman_tpu_torch as ht\n"
+        "from huffman_tpu_torch import cli\n"
+        "from huffman_tpu_torch.container import sharded, streaming\n"
+        "from huffman_tpu_torch.parallel import pipeline\n"
+        "d = np.random.default_rng(0).integers(0, 40, 30001, dtype=np.uint8).tobytes()\n"
+        "assert ht.decompress(ht.compress(d, 'cpu', n_shards=3), 'cpu') == d\n"
+        "s = streaming.compress_bytes(d, chunk_bytes=8192, device='cpu')\n"
+        "assert ht.decompress(s, 'cpu') == d\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'huffman_tpu')))\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
+
+
+def test_launch_counts_from_several_threads(monkeypatch):
+    """Threads launching at once (the HTPS pipeline) lose no count: a
+    stub library stands in for the kernels."""
+    import threading
+    import types
+
+    stub = types.SimpleNamespace(**{sym: (lambda *a: 0) for sym, _ in kernels.KERNELS.values()})
+    monkeypatch.setattr(kernels, "_lib", stub)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0))
+    kernels.reset_launch_counts()
+    n_threads, per_thread = 8, 3000
+    names = list(kernels.KERNELS)
+
+    def work(i):
+        for k in range(per_thread):
+            kernels.launch(names[(i + k) % 2])
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    assert counts[names[0]] + counts[names[1]] == n_threads * per_thread
+    assert counts[names[0]] == counts[names[1]] == n_threads * per_thread // 2
