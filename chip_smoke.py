@@ -65,11 +65,17 @@ Phases, each printing one line or a few:
      alphabet, ``distributed_decode_groups`` in rank mode at the full
      alphabet, packed and unpacked, ``distributed_encode`` /
      ``distributed_decode`` and ``compress_decompress_step``, each equal
-     to the single-device functions on the same tensors). Every
-     container must equal the one the port's CPU path (the plain versions,
-     held equal to the JAX package by the CPU tests) writes, and every
-     decompress must return the input. Each path's kernels must all have
-     launched in its run.
+     to the single-device functions on the same tensors), the native
+     route (the port's C++ host runtime, built with g++, must load: the
+     reference decode of the 32 MiB silesia-like container, the 1 MiB
+     prefix's against the Python loop, bytes and a truncated blob's
+     exception, with both rates; the host histogram against ``np.bincount``;
+     HTPX global mode again, on the native histogram) and the bench route
+     (``bench_torch.py``'s silesia-like rung, each line checked before it is
+     timed, 3 repetitions). Every container must equal the one the port's
+     CPU path (the plain versions, held equal to the JAX package by the CPU
+     tests) writes, and every decompress must return the input. Each path's
+     kernels must all have launched in its run.
 
 The line before the card's JSON lines gives the smoke's wall seconds; the
 second-to-last line is the kernels' JSON record; the last line is
@@ -122,15 +128,10 @@ FRONT_END_PATH = ("histogram", "package_merge", "gather_rank_select", "pack_lane
                   "gather_u16_pairs", "gather_codes")
 DISTRIBUTED_PATH = ("histogram", "package_merge", "gather_rank_select", "gather_rank_canonical",
                     "pack_lanes", "decode_groups", "gather_u16_pairs", "gather_u16", "gather_codes")
+NATIVE_PATH = ("gather_codes", "pack_lanes", "decode_groups", "gather_u16_pairs")
+BENCH_PATH = ("histogram", "package_merge", "gather_rank_select", "pack_lanes", "decode_groups",
+              "gather_u16_pairs")
 HTPS_BYTES = 64 << 20
-
-
-def card_line() -> str:
-    r = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return r.stdout.strip().splitlines()[0]
 
 
 def check_no_spills(log: str, kernels: tuple[str, ...]) -> None:
@@ -178,15 +179,9 @@ def fibonacci_raw(fib: bytes, B: int = 512) -> tuple[torch.Tensor, int]:
 
 def cuda_ms(fn, iters: int) -> float:
     """Mean milliseconds per call of ``fn`` by CUDA events, after a warm-up."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    from huffman_tpu_torch.utils.timing import amortized_time_fn
+
+    return amortized_time_fn(lambda _: fn(), None, iters=iters, reps=1) * 1e3
 
 
 def capture(calls: list[tuple[object, str]], fn, *args, **kwargs):
@@ -311,9 +306,10 @@ def main() -> int:
         fused,
     )
     from huffman_tpu_torch.runtime import kernels
+    from huffman_tpu_torch.utils.benchmark import device_line
 
     dev = torch.device(DEVICE)
-    card = card_line()
+    card = device_line(dev)
     print(card)
     kind = torch.cuda.get_device_name(0)
 
@@ -737,6 +733,69 @@ def main() -> int:
             dist.destroy_process_group()
 
     path_counts.append(run_path("distributed route", DISTRIBUTED_PATH, {}, extra=distributed_route))
+
+    def native_route():
+        from huffman_tpu_torch.container import reference_format, sharded
+        from huffman_tpu_torch.runtime import native
+
+        if not native.available():
+            raise AssertionError(f"the native host runtime did not load: {native.load_error()}")
+        print(f"native: {native.library_path()}")
+        ref = ht.compress_reference(silesia)
+        out, t_big = timed(ht.decompress_reference, ref)
+        if out != silesia:
+            raise AssertionError("native decompress_reference(compress_reference(x)) != x at 32 MiB")
+        prefix = silesia[: 1 << 20]
+        ref_prefix = ht.compress_reference(prefix)
+        out, t_native = timed(ht.decompress_reference, ref_prefix)
+        t0 = time.perf_counter()
+        loop = reference_format.decompress(ref_prefix)
+        t_loop = time.perf_counter() - t0
+        if not out == loop == prefix:
+            raise AssertionError("native and Python-loop reference decodes differ on the 1 MiB prefix")
+        cut = ref_prefix[: len(ref_prefix) // 2]
+        errors = []
+        for fn in (ht.decompress_reference, reference_format.decompress):
+            try:
+                fn(cut)
+                errors.append(None)
+            except Exception as e:  # noqa: BLE001 - the type is the check
+                errors.append(e)
+        if not (isinstance(errors[0], native.NativeError)
+                and str(errors[0]) == "htpu_ref_decompress: truncated input"
+                and isinstance(errors[1], (ValueError, EOFError, IndexError))):
+            raise AssertionError(f"truncated reference blob: native {errors[0]!r}, loop {errors[1]!r}")
+        print(f"native decompress_reference silesia_like_32MiB: median of 3 {t_big:.4f} s "
+              f"({len(silesia) / t_big / 1e6:.1f} MB/s); 1 MiB prefix: native {len(prefix) / t_native / 1e6:.1f} "
+              f"MB/s, Python loop {len(prefix) / t_loop / 1e6:.3f} MB/s, equal bytes; half the prefix's "
+              f"blob: native {type(errors[0]).__name__}({errors[0]}), loop {type(errors[1]).__name__} "
+              f"({card})")
+        symbols = np.frombuffer(silesia, "<u2", count=len(silesia) // 2)
+        hist, t_hist = timed(reference_format.histogram_host, symbols)
+        want, t_bincount = timed(np.bincount, symbols, minlength=65536)
+        if not np.array_equal(hist, want):
+            raise AssertionError("native histogram differs from np.bincount")
+        print(f"native histogram_host silesia_like_32MiB: median of 3 {t_hist * 1e3:.2f} ms, "
+              f"np.bincount {t_bincount * 1e3:.2f} ms, equal ({card})")
+        blob, c = timed(sharded.compress, silesia, n_shards=4, codebook_mode="global")
+        out, d = timed(ht.decompress, blob)
+        if out != silesia:
+            raise AssertionError("HTPX global: decompress(compress(x)) != x")
+        print(f"htpx silesia_like_32MiB global, 4 shards, native host histogram: median of 3: compress "
+              f"{len(silesia) / c / 1e9:.3f} GB/s, decompress {len(silesia) / d / 1e9:.3f} GB/s ({card})")
+
+    path_counts.append(run_path("native route", NATIVE_PATH, {}, extra=native_route))
+
+    def bench_route():
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        import bench_torch
+
+        t0 = time.perf_counter()
+        for r in bench_torch.bench_rung(silesia, "silesia_like_32MB", dev, reps=3):
+            print(f"bench {r.json_line()}")
+        print(f"bench: silesia_like_32MB rung, 3 repetitions, in {time.perf_counter() - t0:.1f} s")
+
+    path_counts.append(run_path("bench route", BENCH_PATH, {}, extra=bench_route))
 
     # Last, so that no timing runs after the profiler: the chain of
     # dependent launches of one package-merge call, as device kernels.

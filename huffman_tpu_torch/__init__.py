@@ -14,19 +14,22 @@ Public API (the command line is ``python -m huffman_tpu_torch``, the
 distribution layer ``huffman_tpu_torch.parallel.pipeline``):
     compress(data, device="cuda", ..., n_shards=None) / decompress(blob, device="cuda", ...)
     compress_reference(data, device="cuda") / decompress_reference(blob)
-    Codebook
+    Codebook, code_lengths_from_frequencies
     resolve_device(device)
 """
 
 from .api import compress, compress_reference, decompress, decompress_reference
-from .codebook import Codebook
+from .codebook import Codebook, code_lengths_from_frequencies
 from .device import resolve_device
 
 __all__ = [
     "Codebook",
+    "code_lengths_from_frequencies",
     "compress",
     "compress_reference",
     "decompress",
     "decompress_reference",
     "resolve_device",
 ]
+
+__version__ = "0.1.0"

@@ -9,6 +9,7 @@ import torch
 from .codebook import Codebook
 from .container import block_format, detect, reference_format, sharded, streaming
 from .device import resolve_device
+from .runtime import native
 
 
 def compress(
@@ -72,6 +73,11 @@ def compress_reference(data: bytes, device: str | torch.device = "cuda") -> byte
 
 
 def decompress_reference(blob: bytes) -> bytes:
-    """Decompress a reference ``.compressed`` container on the host, with
-    a Python loop over its symbols (the format has one serial stream)."""
+    """Decompress a reference ``.compressed`` container on the host (the
+    format has one serial stream): by the native runtime's C++ decoder,
+    which raises ``runtime.native.NativeError`` (a ``RuntimeError``) on a
+    corrupt blob, as ``huffman_tpu.decompress_reference`` does; by a Python
+    loop over its symbols where that runtime cannot be built."""
+    if native.available():
+        return native.decompress_reference(blob)
     return reference_format.decompress(blob)

@@ -7,7 +7,8 @@ parts of huffman_tpu/codebook.py it uses, in NumPy only.
   Both order leaves by (weight, symbol) and break leaf/package weight ties
   leaves first, so they derive the same codebook and the same container.
 * ``code_lengths_from_frequencies``: the unlimited two-queue Huffman code
-  (``max_code_len=None``), with deterministic (freq, symbol) tie-breaking.
+  (``max_code_len=None``), with deterministic (freq, symbol) tie-breaking,
+  by the native runtime (``runtime/native.py``) where it is available.
 * ``Codebook``: canonical codes and the dense tables the kernels read.
 
 A codebook built by the JAX package carries over as its lengths:
@@ -22,13 +23,19 @@ from dataclasses import dataclass
 import numpy as np
 
 from .constants import MAX_CODE_LEN, MAX_SYMBOLS
+from .runtime import native
 
 
 def code_lengths_from_frequencies(freqs: np.ndarray) -> np.ndarray:
     """Optimal prefix-code lengths for a dense frequency table: (MAX_SYMBOLS,)
     uint8, 0 for absent symbols. A single unique symbol gets length 1 (the
-    degenerate tree)."""
+    degenerate tree). A dense table goes to the native runtime's two-queue
+    builder (same algorithm, same tie-breaking) where it is available; only
+    a library that cannot be loaded falls through to the Python loop below,
+    and its validation errors (negative counts: ``NativeError``) propagate."""
     freqs = np.asarray(freqs)
+    if freqs.shape == (MAX_SYMBOLS,) and native.available():
+        return native.code_lengths(freqs)
     present = np.flatnonzero(freqs)
     n = present.size
     lengths = np.zeros(MAX_SYMBOLS, dtype=np.uint8)
@@ -227,3 +234,7 @@ class Codebook:
     @staticmethod
     def from_frequencies(freqs: np.ndarray) -> "Codebook":
         return Codebook.from_lengths(code_lengths_from_frequencies(freqs))
+
+    def expected_bits(self, freqs: np.ndarray) -> int:
+        """Total payload bits = sum freq * len (optimality invariant)."""
+        return int(np.sum(freqs.astype(np.int64) * self.lengths.astype(np.int64)))

@@ -18,8 +18,9 @@ the JAX package's, NumPy only. ``compress`` packs the payload on a device
 (``ops/encode.py``'s ``pack_stream``), as the JAX package does for
 ``backend="jax"``: codes from K3 (or the two-table gather past 26 bits),
 bit offsets from a device cumsum split into (word, bit) int32 pairs.
-``decompress`` is host code, a Python loop, as in the JAX package without
-its native runtime.
+``decompress`` is host code, a Python loop: the fallback of
+``api.decompress_reference``, which runs the native runtime's decoder
+where it is available, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from ..ops import encode as enc
 from ..ops.cuda_gather import gather_table_codes
 from ..ops.histogram import bytes_to_symbols_device
 from ..ops.tables import tables_from_codebook
+from ..runtime import native
 from ..u32 import to_numpy_u32
 
 
@@ -62,7 +64,10 @@ def symbols_to_bytes(symbols: np.ndarray, is_odd: bool, last_byte: int) -> bytes
 
 
 def histogram_host(symbols: np.ndarray) -> np.ndarray:
-    """Dense 65,536-bin int64 histogram of u16 symbols."""
+    """Dense 65,536-bin int64 histogram of u16 symbols: the native
+    runtime's threaded loop where it is available, NumPy otherwise."""
+    if native.available():
+        return native.histogram(np.ascontiguousarray(symbols, dtype="<u2").view(np.uint8))
     return np.bincount(symbols, minlength=MAX_SYMBOLS).astype(np.int64)
 
 

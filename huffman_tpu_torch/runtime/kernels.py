@@ -4,9 +4,10 @@ Counterpart of ``huffman_tpu/runtime/native.py`` for the device side: the
 sources in ``huffman_tpu_torch/csrc/*.cu`` compile with ``nvcc`` for
 ``sm_90a`` (one ``nvcc`` per source, all started together) and link into
 ONE shared library with a plain C interface, loaded with ``ctypes``. The
-build runs at first use into ``build/huffman_tpu_torch/`` beside the
-package; the library's file name carries a hash of the sources and flags,
-so a stale build is never loaded.
+build runs at first use into ``runtime/builddir.py``'s directory
+(``build/huffman_tpu_torch/`` beside the package where that can be
+written), under its lock; the library's file name carries a hash of the
+sources and flags, so a stale build is never loaded.
 
 Each C entry point launches one kernel on the stream it is given (PyTorch's
 current stream) and returns ``cudaGetLastError()``; ``launch`` raises if
@@ -25,9 +26,10 @@ from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[1]
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG.parent / "build" / "huffman_tpu_torch"
+from .builddir import build_dir, locked
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = build_dir()
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -101,6 +103,13 @@ def build() -> tuple[Path, str]:
     if lib.exists():
         return lib, ""
     nvcc = _nvcc()
+    with locked(BUILD_DIR):
+        if lib.exists():  # another process built it while this one waited
+            return lib, ""
+        return lib, _compile(nvcc, lib)
+
+
+def _compile(nvcc: str, lib: Path) -> str:
     work = BUILD_DIR / f"{lib.stem}.{os.getpid()}.tmp"
     work.mkdir(parents=True, exist_ok=True)
     try:
@@ -126,10 +135,10 @@ def build() -> tuple[Path, str]:
             raise RuntimeError(
                 f"nvcc link failed (exit {r.returncode}): {' '.join(cmd)}\n{r.stderr}"
             )
-        os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
+        os.replace(tmp, lib)  # atomic: a concurrent load never sees a partial file
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return lib, "".join(log)
+    return "".join(log)
 
 
 def load() -> ctypes.CDLL:

@@ -1,8 +1,10 @@
 """Package-level properties of the PyTorch port: it stands alone (no JAX,
 nothing of huffman_tpu), refuses a CUDA device it does not have, runs on
-the card by default, builds from hashed sources, and counts only real
-kernel launches."""
+the card by default, builds from hashed sources into a writable build
+directory (an installed wheel's user cache), counts only real kernel
+launches, and exports the JAX package's public names."""
 
+import os
 import re
 import subprocess
 import sys
@@ -47,16 +49,17 @@ def test_port_runs_without_jax():
 
 def test_no_jax_import_in_the_package_source():
     pattern = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
-    offenders = [p for p in PKG.rglob("*.py") if pattern.search(p.read_text())]
+    sources = [*PKG.rglob("*.py"), REPO / "chip_smoke.py", REPO / "bench_torch.py"]
+    offenders = [p for p in sources if pattern.search(p.read_text())]
     assert offenders == []
 
 
 def test_nothing_of_huffman_tpu_is_imported():
     """The port keeps its own copies of the host code it needs: no module
-    of it, and not chip_smoke.py, imports huffman_tpu (huffman_tpu_torch's
-    own absolute imports are fine)."""
+    of it, and not chip_smoke.py or bench_torch.py, imports huffman_tpu
+    (huffman_tpu_torch's own absolute imports are fine)."""
     pattern = re.compile(r"^\s*(import|from)\s+huffman_tpu(?!_torch)\b", re.M)
-    sources = [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]
+    sources = [*PKG.rglob("*.py"), REPO / "chip_smoke.py", REPO / "bench_torch.py"]
     offenders = [p for p in sources if pattern.search(p.read_text())]
     assert offenders == []
     assert pattern.search("from huffman_tpu.codebook import Codebook")
@@ -200,3 +203,121 @@ def test_launch_counts_from_several_threads(monkeypatch):
     kernels.reset_launch_counts()
     assert counts[names[0]] + counts[names[1]] == n_threads * per_thread
     assert counts[names[0]] == counts[names[1]] == n_threads * per_thread // 2
+
+
+def test_public_surface_matches_the_jax_package():
+    """code_lengths_from_frequencies, __version__ and
+    Codebook.expected_bits are public in the port and agree with the JAX
+    package's."""
+    import huffman_tpu
+
+    assert huffman_tpu_torch.__version__ == huffman_tpu.__version__
+    assert "code_lengths_from_frequencies" in huffman_tpu_torch.__all__
+    rng = np.random.default_rng(11)
+    for n in (0, 1, 2, 700, 65536):
+        freqs = np.zeros(65536, dtype=np.int64)
+        freqs[rng.choice(65536, n, replace=False)] = rng.integers(1, 10_000, n)
+        lengths = huffman_tpu_torch.code_lengths_from_frequencies(freqs)
+        assert np.array_equal(lengths, huffman_tpu.code_lengths_from_frequencies(freqs))
+        ours = huffman_tpu_torch.Codebook.from_lengths(lengths)
+        theirs = huffman_tpu.Codebook.from_lengths(lengths)
+        assert ours.expected_bits(freqs) == theirs.expected_bits(freqs)
+        assert isinstance(ours.expected_bits(freqs), int)
+
+
+def test_build_dir_falls_back_to_the_user_cache(monkeypatch, tmp_path):
+    """The libraries build beside the package where that can be written,
+    else into $XDG_CACHE_HOME/huffman_tpu_torch, else
+    ~/.cache/huffman_tpu_torch."""
+    from huffman_tpu_torch.runtime import builddir, native
+
+    assert kernels.BUILD_DIR == builddir.build_dir() == builddir.LOCAL_BUILD_DIR
+    assert builddir.LOCAL_BUILD_DIR == REPO / "build" / "huffman_tpu_torch"
+    assert native.library_path().parent == builddir.LOCAL_BUILD_DIR
+    blocker = tmp_path / "file"
+    blocker.write_bytes(b"")  # a file where the directory's parent would be
+    monkeypatch.setattr(builddir, "LOCAL_BUILD_DIR", blocker / "build" / "huffman_tpu_torch")
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    assert builddir.build_dir() == tmp_path / "xdg" / "huffman_tpu_torch"
+    assert native.library_path().parent == tmp_path / "xdg" / "huffman_tpu_torch"
+    monkeypatch.delenv("XDG_CACHE_HOME")
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    assert builddir.build_dir() == tmp_path / "home" / ".cache" / "huffman_tpu_torch"
+    assert not (tmp_path / "home").exists()  # choosing creates nothing
+
+
+def _world_traversable(path: Path) -> bool:
+    return all(os.stat(p).st_mode & 0o001 for p in (path, *path.parents))
+
+
+def test_installed_wheel_builds_the_native_runtime_into_the_user_cache(tmp_path):
+    """A wheel of the repository, installed with --target into a directory
+    then made read-only, builds the port's native runtime into
+    $XDG_CACHE_HOME/huffman_tpu_torch on first use and decodes a reference
+    blob with it. Run as root, the probe runs as user nobody, for whom the
+    read-only mode holds."""
+    import shutil
+    import tempfile
+
+    import huffman_tpu
+
+    if shutil.which("g++") is None:
+        pytest.skip("no g++: the native runtime is built at first use")
+    root = os.geteuid() == 0
+    # The wheel is built, as tests/test_wheel.py builds it, from a copy of
+    # the packaging files: two pip builds in one source tree share its build/.
+    src = tmp_path / "src"
+    src.mkdir()
+    for name in ("pyproject.toml", "setup.py", "MANIFEST.in", "README.md", "Makefile"):
+        shutil.copy2(REPO / name, src / name)
+    (src / "docs").mkdir()
+    shutil.copy2(REPO / "docs" / "FORMATS.md", src / "docs" / "FORMATS.md")
+    for name in ("native", "huffman_tpu", "huffman_tpu_torch"):
+        shutil.copytree(REPO / name, src / name, ignore=shutil.ignore_patterns("__pycache__"))
+    r = subprocess.run(
+        [sys.executable, "-m", "pip", "wheel", "--no-deps", "--no-build-isolation",
+         "-w", str(tmp_path / "dist"), str(src)],
+        capture_output=True, text=True, timeout=120,
+    )
+    assert r.returncode == 0, r.stderr[-2000:]
+    (wheel,) = (tmp_path / "dist").glob("huffman_tpu-*.whl")
+
+    base = Path(tempfile.mkdtemp())
+    try:
+        base.chmod(0o755)
+        if root and not _world_traversable(base):
+            pytest.skip(f"{base.parent} is closed to other users: no unprivileged probe")
+        site, cache = base / "site", base / "cache"
+        r = subprocess.run(
+            [sys.executable, "-m", "pip", "install", "--no-deps", "--target", str(site), str(wheel)],
+            capture_output=True, text=True, timeout=120,
+        )
+        assert r.returncode == 0, r.stderr[-2000:]
+        assert (site / "huffman_tpu_torch" / "native" / "htpu_native.cpp").exists()
+        subprocess.run(["chmod", "-R", "a-w", str(site)], check=True)
+        cache.mkdir()
+        cache.chmod(0o777)
+        probe = (
+            "import sys; sys.path.insert(0, sys.argv[1])\n"
+            "import huffman_tpu_torch as htt\n"
+            "from huffman_tpu_torch.runtime import kernels, native\n"
+            "assert htt.__file__.startswith(sys.argv[1]), htt.__file__\n"
+            "assert native.available(), native.load_error()\n"
+            "print(native.library_path())\n"
+            "print(kernels.BUILD_DIR)\n"
+            "assert htt.decompress_reference(bytes.fromhex(sys.argv[2])) == bytes.fromhex(sys.argv[3])\n"
+        )
+        data = np.random.default_rng(2).integers(0, 60, 40_001, dtype=np.uint8).tobytes()
+        env = {"PATH": os.environ["PATH"], "XDG_CACHE_HOME": str(cache), "HOME": str(cache)}
+        r = subprocess.run(
+            [sys.executable, "-c", probe, str(site), huffman_tpu.compress_reference(data).hex(), data.hex()],
+            capture_output=True, text=True, timeout=120, cwd=str(base), env=env,
+            preexec_fn=(lambda: (os.setgid(65534), os.setuid(65534))) if root else None,
+        )
+        assert r.returncode == 0, r.stderr[-3000:]
+        lib, kernel_dir = r.stdout.split()
+        assert Path(lib).parent == Path(kernel_dir) == cache / "huffman_tpu_torch"
+        assert Path(lib).exists() and not (site / "build").exists()
+    finally:
+        subprocess.run(["chmod", "-R", "u+w", str(base)], check=False)
+        shutil.rmtree(base, ignore_errors=True)

@@ -30,6 +30,7 @@ from huffman_tpu.container import sharded
 from huffman_tpu.ops import pallas_decode as pd
 from huffman_tpu.ops.tables import device_tables
 from huffman_tpu.parallel import pipeline as pp
+from huffman_tpu_torch.codebook import Codebook as TorchCodebook
 
 REPO = Path(__file__).resolve().parent.parent
 WORKER = REPO / "tests" / "torch_parallel_worker.py"
@@ -126,7 +127,8 @@ def _cases(mesh) -> tuple[dict, dict]:
     )
     refs.update({"step.hist": np.asarray(hist)[:MAX_SYMBOLS], "step.slab": np.asarray(slab),
                  "step.bits": np.asarray(bits), "step.ok": np.asarray(ok)})
-    refs["step.expected_bits"] = np.array(cb.expected_bits(np.bincount(symbols, minlength=MAX_SYMBOLS)))
+    refs["step.expected_bits"] = np.array(
+        TorchCodebook.from_lengths(cb.lengths).expected_bits(np.bincount(symbols, minlength=MAX_SYMBOLS)))
 
     symbols, padded, valid, n_pairs = _blocks(2)
     cb = Codebook.from_frequencies(np.bincount(symbols, minlength=MAX_SYMBOLS))
