@@ -6,7 +6,7 @@ of bench.py (which stays the JAX package's bench).
 
 Three rungs of 32 MiB each, made from a seed by the port's corpora:
   - ``silesia_like_32MB``: ``silesia_like(32 MiB, seed=7)``, the headline
-    (~4k distinct byte pairs: rank-tier decode, tier 4096 encode);
+    (~4k distinct byte pairs: tier 4096 encode);
   - ``wide30k_32MB``: ``zipf_pairs(32 MiB, 30000, rng(3))``, bench.py's
     wide30k (tier 32768);
   - ``zipf65536_32MB``: ``zipf_pairs(32 MiB, 65536, rng(11))``, the full
@@ -14,11 +14,11 @@ Three rungs of 32 MiB each, made from a seed by the port's corpora:
 
 Four lines a rung, each a rate in GB/s of the rung's input bytes:
   1. ``huffman_decode_throughput_<rung>``: the device-resident decode of the
-     v2 container's streams to packed symbol pairs, K1 then (rank-tier
-     alphabets) K2, as ``decompress`` runs it;
+     v2 container's streams to packed symbol pairs, K1 translating
+     in-kernel, as ``decompress`` runs it;
   2. ``huffman_encode_throughput_<rung>``: the fused encode
-     (``ops/fused.py`` ``encode_device``: K6, K7, K8 or K9, K4 and the
-     stream assembly) on device-resident symbols, with the host reads it
+     (``ops/fused.py`` ``encode_device``: K6, K7, K8 or K9, K4 and K10's
+     stream deposit) on device-resident symbols, with the host reads it
      makes (the alphabet size, the largest group);
   3. ``huffman_compress_throughput_<rung>`` and
   4. ``huffman_decompress_throughput_<rung>``: ``compress(data)`` and
@@ -56,6 +56,7 @@ import huffman_tpu_torch as htt
 from huffman_tpu_torch.constants import DEFAULT_BLOCK_SYMBOLS, DEFAULT_MAX_CODE_LEN
 from huffman_tpu_torch.container import block_format as bf
 from huffman_tpu_torch.device import resolve_device
+from huffman_tpu_torch.ops.cuda_decode import decode_groups
 from huffman_tpu_torch.ops.fused import encode_device
 from huffman_tpu_torch.ops.histogram import bytes_to_symbols_device
 from huffman_tpu_torch.u32 import to_numpy_u32
@@ -77,10 +78,10 @@ def decode_line(data: bytes, host_blob: bytes, tag: str, device, card: str,
                 iters: int = DEVICE_ITERS, reps: int = DEVICE_REPS) -> BenchResult:
     """The device-resident v2 decode of ``host_blob``'s streams."""
     c = bf.ParsedContainer(host_blob)
-    streams, n_real, tables, B, translate = bf.v2_device_inputs(c, device)
+    streams, n_real, tables, B = bf.v2_device_inputs(c, device)
 
     def run(s):
-        return bf.decode_v2_device(s, n_real, tables, B, translate)
+        return decode_groups(s, n_real, tables, B, True)
 
     out = run(streams)
     words = out.reshape(c.ngroups, B // 2, -1).transpose(1, 2).contiguous()

@@ -7,7 +7,9 @@ Phases, each printing one line or a few:
   0. card: ``nvidia-smi --query-gpu=name,power.limit`` as the card reports it;
   1. build: the kernels from huffman_tpu_torch/csrc/ with nvcc (the
      package's own first-use build, one nvcc per source in parallel), with
-     the build seconds;
+     the build seconds, ptxas's spill check and K1's shared memory at the
+     largest translate table (the ring, the table and its static arrays
+     must fit a block's 227 KiB);
   2. each kernel against its plain PyTorch version on the same CUDA
      tensors, bit for bit, at the shapes of the main paths. The tensors are
      captured from the calls a user makes at 32 MiB:
@@ -19,20 +21,21 @@ Phases, each printing one line or a few:
          input at a 32-bit limit (tier 4096, 31 rounds);
        - the host-codebook compress route, silesia-like with a given
          codebook (the dense code gather);
-       - decompress of silesia-like (rank-mode decode, rank -> symbol
-         pairs) and of an 8 MiB 300-symbol input (translate-mode decode);
-         the rank-mode decode again with its streams repeated five times
-         along the groups (160 groups: more blocks than the card's 132
-         SMs);
+       - decompress of silesia-like, of the full alphabet and of an 8 MiB
+         300-symbol input (translate-mode decode, the table in shared
+         memory); the silesia-like decode in rank mode with its rank ->
+         symbol pairs (K2), as alphabets past the translate boundary and
+         the distributed decoder run it, and again with its streams
+         repeated five times along the groups (160 groups: more blocks
+         than the card's 132 SMs);
        - the histogram again on a view of the silesia-like symbols 2 bytes
          past a 16-byte boundary, with n_valid % 8 == 3 (its unaligned
          head and its tail), and the canonical-rank gather on the same
          kind of view of the wide30k symbols (its funnel-shifted loads
          and its tail);
        - the lane pack at the full-alphabet shape as well as silesia-like;
-       - the in-kernel deposit (K10) on the lane-pack and stream-assembly
-         arguments of the silesia-like and full-alphabet compresses, with
-         the tensor-op ``pack_streams`` timed on the same inputs;
+       - the in-kernel deposit (K10) on the arguments the silesia-like and
+         full-alphabet compresses hand it;
        - the unpacked rank-mode decode's rank -> symbol lookup (K5) on the
          wide30k and full-alphabet decodes.
      Times from CUDA events, with each kernel's bound (the larger of its
@@ -43,6 +46,18 @@ Phases, each printing one line or a few:
      launches is the count of device kernels ``torch.profiler`` records
      in one call of each shape, read after phase 3 (``profiler_kernels``;
      the smoke fails if it records none);
+  2b. the route A/Bs that set the main path's choices (``route_abs``;
+     ``scripts/torch_route_ab.py`` runs them with 7 repetitions and the
+     deposit route's pieces), each form checked against the other first,
+     then timed in turns by CUDA events, median and spread of 5
+     repetitions, one ``ab ...`` line each and a ``route_ab`` JSON line:
+     stream assembly by the tensor-op ``pack_streams`` against K4 + K10
+     on the three 32 MiB rungs (and the encode line with each); the
+     gather boundary, K8 against K9, at tier 4096 (silesia-like) and
+     16384 (``zipf_pairs(32 MiB, 12000, rng(13))``); the decode, K1 rank
+     mode + K2 against K1 translate, on the silesia-like, 12,000-symbol,
+     wide30k, full-alphabet and 300-symbol containers at their groups and
+     at five times as many;
   3. the paths, each with the launch counts set to 0 just before it and
      read just after: the fused route (compress + decompress of the three
      32 MiB inputs and the 8 MiB one), the host-codebook route (32 MiB
@@ -51,8 +66,9 @@ Phases, each printing one line or a few:
      (the 29-bit Fibonacci input in v2 and v1, and the fused encode at a
      32-bit limit), the reference route (the ``.compressed`` format at 32
      MiB, and its host decode of a 1 MiB prefix) and the ops route (the
-     in-kernel deposit against ``pack_streams``, the unpacked decode
-     against the packed one, the on-device roundtrip at 32 MiB), the
+     in-kernel deposit path against ``pack_streams``, rank mode asked
+     for explicitly: K1 + K2 against K1 translate and the unpacked decode
+     (K5) against the packed one, the on-device roundtrip at 32 MiB), the
      front-end route (an HTPS stream of 64 MiB silesia-like in 16 MiB
      chunks with ``pipeline`` 2 and 1, which must write the same bytes,
      with their wall times; HTPX archives of the 32 MiB silesia-like in 4
@@ -75,7 +91,9 @@ Phases, each printing one line or a few:
      timed, 3 repetitions). Every container must equal the one the port's
      CPU path (the plain versions, held equal to the JAX package by the CPU
      tests) writes, and every decompress must return the input. Each path's
-     kernels must all have launched in its run.
+     kernels must all have launched in its run: K4 and K10 on every v2
+     compress route, K1 on every decompress; K2 and K5 on the ops and
+     distributed routes, where rank mode is asked for.
 
 The line before the card's JSON lines gives the smoke's wall seconds; the
 second-to-last line is the kernels' JSON record; the last line is
@@ -93,6 +111,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -117,20 +136,21 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "gather_rank_canonical": ("huffman_tpu_torch/csrc/rank_gather.cu", "huffman_tpu/ops/pallas_gather.py:363"),
 }
 FUSED_PATH = ("histogram", "package_merge", "gather_rank_select", "gather_rank_canonical",
-              "pack_lanes", "decode_groups", "gather_u16_pairs")
-HOST_PATH = ("gather_codes", "pack_lanes", "decode_groups", "gather_u16_pairs")
+              "pack_lanes", "deposit_streams", "decode_groups")
+HOST_PATH = ("gather_codes", "pack_lanes", "deposit_streams", "decode_groups")
 V1_PATH = ("gather_codes", "pack_lanes")
-WIDE_PATH = ("pack_lanes", "histogram", "package_merge", "decode_groups")
+WIDE_PATH = ("pack_lanes", "deposit_streams", "histogram", "package_merge", "decode_groups")
 REFERENCE_PATH = ("gather_codes",)
 OPS_PATH = ("deposit_streams", "gather_u16", "pack_lanes", "decode_groups", "gather_u16_pairs",
             "histogram", "package_merge", "gather_rank_select")
-FRONT_END_PATH = ("histogram", "package_merge", "gather_rank_select", "pack_lanes", "decode_groups",
-                  "gather_u16_pairs", "gather_codes")
+FRONT_END_PATH = ("histogram", "package_merge", "gather_rank_select", "pack_lanes", "deposit_streams",
+                  "decode_groups", "gather_codes")
 DISTRIBUTED_PATH = ("histogram", "package_merge", "gather_rank_select", "gather_rank_canonical",
-                    "pack_lanes", "decode_groups", "gather_u16_pairs", "gather_u16", "gather_codes")
-NATIVE_PATH = ("gather_codes", "pack_lanes", "decode_groups", "gather_u16_pairs")
-BENCH_PATH = ("histogram", "package_merge", "gather_rank_select", "pack_lanes", "decode_groups",
-              "gather_u16_pairs")
+                    "pack_lanes", "deposit_streams", "decode_groups", "gather_u16_pairs", "gather_u16",
+                    "gather_codes")
+NATIVE_PATH = ("gather_codes", "pack_lanes", "deposit_streams", "decode_groups")
+BENCH_PATH = ("histogram", "package_merge", "gather_rank_select", "pack_lanes", "deposit_streams",
+              "decode_groups")
 HTPS_BYTES = 64 << 20
 
 
@@ -154,6 +174,33 @@ def check_no_spills(log: str, kernels: tuple[str, ...]) -> None:
     if missing := set(kernels) - seen:
         raise AssertionError(f"ptxas: no properties line for {sorted(missing)}")
     print(f"ptxas: no spills in {', '.join(kernels)}")
+
+
+def check_k1_shared_memory(log: str) -> None:
+    """K1 in translate mode holds its stream ring and a table of up to
+    ``TRANSLATE_MAX_ALPHABET`` u16 symbols in dynamic shared memory beside
+    its static arrays: fail unless the largest sum fits a block's 227 KiB.
+    An empty log (a library built before) is reported and not checked."""
+    from huffman_tpu_torch.ops.cuda_decode import TRANSLATE_MAX_ALPHABET
+
+    if not log:
+        print("ptxas: library built before this run; K1's shared memory not read")
+        return
+    current, static = None, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            current = line.rsplit(" ", 1)[-1]
+        elif current and "decode_groups_kernelILb1E" in current and "bytes smem" in line:
+            static = int(re.search(r"(\d+) bytes smem", line).group(1))
+            break
+    if static is None:
+        raise AssertionError("ptxas: no shared-memory line for K1's translate kernel")
+    ring, table = 16384 * 4, (2 * TRANSLATE_MAX_ALPHABET + 15) // 16 * 16
+    total = static + ring + table
+    print(f"ptxas: K1 translate shared memory: static {static} + ring {ring} + table of "
+          f"{TRANSLATE_MAX_ALPHABET} symbols {table} = {total} of 232448 bytes a block")
+    if total > 232448:
+        raise AssertionError(f"K1's shared memory at {TRANSLATE_MAX_ALPHABET} symbols exceeds a block's")
 
 
 def device_kernels(fn) -> int:
@@ -288,6 +335,183 @@ def slowest(variants: list[dict]) -> dict:
     return {**rec, "variants": variants}
 
 
+# Route A/Bs: the forms of the main path's three H100 choices, timed in
+# turns on the same inputs (scripts/torch_route_ab.py runs them with more
+# repetitions and the deposit route's pieces).
+
+def encode_streams_tensor_ops(codes, lens, n_pairs, min_len, n_real):
+    """``encode_streams`` as it assembled streams before the deposit route
+    (the form the JAX package chose for the TPU): the same protocol
+    lengths and bucketed cap, then the tensor-op ``pack_streams``."""
+    from huffman_tpu_torch.constants import GROUP_LANES
+    from huffman_tpu_torch.ops import cuda_encode
+
+    n_lanes, B = codes.shape
+    pos = torch.arange(n_lanes * B, device=codes.device).reshape(n_lanes, B)
+    eff = torch.where(pos < n_pairs, lens, min_len).to(torch.int32)
+    lane = torch.arange(n_lanes, device=codes.device)
+    bits = torch.where(lane < n_real, eff.sum(dim=1), 0)
+    gwords = (bits >> 5).reshape(-1, GROUP_LANES).sum(dim=1)
+    cap = cuda_encode.bucket_words(max(int(gwords.max()), 128))
+    return cuda_encode.pack_streams(codes, eff, n_real, cap)
+
+
+def deposit_inputs_first_form(codes, eff, n_real):
+    """K10's inputs as the deposit path first built them: the fire bits by
+    ``_fires`` (the words completed after each step, differenced) and an
+    int64 shift-sum of them."""
+    from huffman_tpu_torch.constants import GROUP_LANES
+    from huffman_tpu_torch.ops import cuda_encode
+    from huffman_tpu_torch.u32 import narrow
+
+    n_lanes, B = codes.shape
+    st = cuda_encode.pack_lanes(codes, eff)
+    r, fire = cuda_encode._fires(eff, n_real)
+    mb = -(-B // 32)
+    padded = torch.nn.functional.pad(fire, (0, mb * 32 - B)).reshape(n_lanes, mb, 32)
+    mask = narrow((padded.to(torch.int64) << torch.arange(32, device=codes.device)).sum(dim=2))
+    return st, mask, r[:, -1].reshape(-1, GROUP_LANES).sum(dim=1, dtype=torch.int32)
+
+
+def event_ms(fn, iters: int) -> float:
+    """Milliseconds a call: ``iters`` calls between two CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def in_turns(forms: dict, iters: int, reps: int) -> dict:
+    """{form: (median ms, spread ms)} of the forms timed in turns (A B,
+    then B A, ...) after one warm-up call each; the spread is the slowest
+    repetition less the fastest."""
+    for fn in forms.values():
+        fn()
+    torch.cuda.synchronize()
+    names, times = list(forms), {k: [] for k in forms}
+    for r in range(reps):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            times[k].append(event_ms(forms[k], iters))
+    return {k: (statistics.median(v), max(v) - min(v)) for k, v in times.items()}
+
+
+def ab(records: list, choice: str, case: str, forms: dict, iters: int, reps: int, card: str) -> dict:
+    """Time two forms, the current or old one first, and print whether the
+    second wins by more than the larger spread (the switching rule)."""
+    (a, (ma, sa)), (b, (mb, sb)) = in_turns(forms, iters, reps).items()
+    wins = ma - mb > max(sa, sb)
+    rec = {"choice": choice, "case": case, a: [ma, sa], b: [mb, sb], "diff_ms": ma - mb,
+           "larger_spread_ms": max(sa, sb), f"{b}_wins": wins, "iters": iters, "reps": reps}
+    records.append(rec)
+    print(f"ab {choice} [{case}]: {a} {ma:.4f} ms (spread {sa:.4f}), {b} {mb:.4f} ms (spread {sb:.4f}); "
+          f"{a} - {b} = {ma - mb:+.4f} ms; {b} {'wins' if wins else 'does not win'} by more than the "
+          f"larger spread ({card})", flush=True)
+    return rec
+
+
+def streams_equal(a, b) -> bool:
+    """Two (streams, counts) pairs hold the same words up to each count."""
+    (sa, ca), (sb, cb) = a, b
+    if not torch.equal(ca, cb):
+        return False
+    w = int(ca.max())
+    keep = torch.arange(w, device=sa.device)[None, :] < ca[:, None]
+    return torch.equal(sa[:, :w][keep], sb[:, :w][keep])
+
+
+def route_abs(enc_args: dict, gather_args: dict, blobs: dict, dev, card: str, reps: int) -> list[dict]:
+    """The three A/Bs, each form checked against the other before it is
+    timed. ``enc_args``: {rung: ``encode_streams``' arguments on the fused
+    route}; ``gather_args``: {input: (hist, n_unique, symbols, n_valid)}
+    at tiers below 32768; ``blobs``: {input: v2 container} for the decode.
+      (a) ``encode_streams``: tensor-op ``pack_streams`` against K4 + K10,
+          K10's inputs as first built against the package's, and the
+          fused encode (the bench's encode line) with each assembly;
+      (b) ``tiered_code_gather`` with K8 against K9 (the whole call, and
+          the gather stage from the canonical tables on), and the encode
+          line with each at tier 4096;
+      (c) K1 rank mode + K2 against K1 translate, at each container's
+          groups and with its streams repeated five times."""
+    from huffman_tpu_torch.constants import DEFAULT_MAX_CODE_LEN
+    from huffman_tpu_torch.container import block_format as bf
+    from huffman_tpu_torch.ops import cuda_decode, cuda_encode, cuda_gather, fused
+    from huffman_tpu_torch.ops.device_codebook import device_canonical_tables
+
+    recs, max_len = [], DEFAULT_MAX_CODE_LEN
+    for name, args in enc_args.items():
+        if not streams_equal(encode_streams_tensor_ops(*args), cuda_encode.encode_streams(*args)):
+            raise AssertionError(f"ab (a) {name}: the two stream assemblies differ")
+        ab(recs, "a encode_streams", name, {"tensor_ops": lambda: encode_streams_tensor_ops(*args),
+                                           "deposit": lambda: cuda_encode.encode_streams(*args)}, 10, reps, card)
+        codes, lens, n_pairs, min_len, n_real = args
+        eff = lens.to(torch.int32, copy=True)
+        eff.view(-1)[n_pairs:].fill_(min_len)
+        first, ours = deposit_inputs_first_form(codes, eff, n_real), cuda_encode._deposit_inputs(codes, eff, n_real)
+        if not all(torch.equal(x, y) for x, y in zip(first, ours)):
+            raise AssertionError(f"ab (a) {name}: K10's inputs differ between the forms")
+        ab(recs, "a K10 inputs", name, {"first": lambda: deposit_inputs_first_form(codes, eff, n_real),
+                                        "package": lambda: cuda_encode._deposit_inputs(codes, eff, n_real)},
+           10, reps, card)
+        _, _, sym, n_valid = gather_args[name]
+
+        def line_tensor_ops():
+            with mock.patch.object(fused, "encode_streams", encode_streams_tensor_ops):
+                return fused.encode_device(sym, n_valid, max_len)
+
+        ab(recs, "a encode line", name, {
+            "tensor_ops": line_tensor_ops, "deposit": lambda: fused.encode_device(sym, n_valid, max_len)},
+           5, reps, card)
+
+    for name, (hist, n_unique, sym, n_valid) in gather_args.items():
+        cap = fused.tier_for(n_unique)
+        if cap > 16384:
+            continue
+
+        def whole(min_cap):
+            with mock.patch.object(fused, "CANON_GATHER_MIN_CAP", min_cap):
+                return fused.tiered_code_gather(hist, n_unique, sym, n_valid, max_len=max_len)
+
+        k8, k9 = whole(cap + 1), whole(0)
+        if not all(torch.equal(x, y) for x, y in zip(k8[:3], k9[:3])):
+            raise AssertionError(f"ab (b) {name}: K8 and K9 give other codes")
+        case = f"{name}, tier {cap}"
+        ab(recs, "b tiered_code_gather", case, {"K8": lambda: whole(cap + 1), "K9": lambda: whole(0)},
+           20, reps, card)
+        tabs, present = device_canonical_tables(k8[0]), k8[0] > 0
+        ab(recs, "b gather stage", case, {
+            "K8": lambda: fused.rank_select_codes(tabs, present, cap, sym, n_valid, max_len),
+            "K9": lambda: fused.canonical_rank_codes(tabs, present, cap, sym, n_valid, max_len)},
+           20, reps, card)
+        if cap == 4096:
+            def line(min_cap):
+                with mock.patch.object(fused, "CANON_GATHER_MIN_CAP", min_cap):
+                    return fused.encode_device(sym, n_valid, max_len)
+
+            ab(recs, "b encode line", case, {"K8": lambda: line(cap + 1), "K9": lambda: line(0)}, 5, reps, card)
+
+    for name, blob in blobs.items():
+        c = bf.ParsedContainer(blob)
+        streams, n_real, tables, B = bf.v2_device_inputs(c, dev)
+        for mult in (1, 5):
+            s, n = streams.repeat(mult, 1), n_real.repeat(mult)
+
+            def translate():
+                return cuda_decode.decode_groups(s, n, tables, B, True)
+
+            def rank():
+                return cuda_gather.gather_u16_pairs(cuda_decode.decode_groups(s, n, tables, B, False),
+                                                    tables.sym_order)
+
+            if not torch.equal(translate(), rank()):
+                raise AssertionError(f"ab (c) {name} x{mult}: translate and rank + K2 differ")
+            ab(recs, "c decode", f"{name}, {c.codebook.n_unique} symbols, {s.shape[0]} groups",
+               {"rank_K2": rank, "translate": translate}, 20, reps, card)
+    return recs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -323,6 +547,7 @@ def main() -> int:
     check_no_spills(log, ("decode_groups_kernel", "pack_lanes_kernel", "leaf_tile_sort",
                           "leaf_merge_pass", "leaves_init", "pm_round", "pm_count", "pm_one_block",
                           "deposit_streams_kernel", "histogram_kernel", "rank_canonical_kernel"))
+    check_k1_shared_memory(log)
 
     silesia = silesia_like(BIG, seed=7).tobytes()
     wide = wide30k(BIG).tobytes()
@@ -337,17 +562,19 @@ def main() -> int:
     # Phase 2: kernel vs plain at the main paths' shapes.
     fused_calls = [(fused, "histogram"), (device_codebook, "package_merge"),
                    (fused, "gather_rank_select"), (fused, "gather_rank_canonical"),
-                   (cuda_encode, "pack_lanes"), (cuda_encode, "pack_streams")]
+                   (cuda_encode, "pack_lanes"), (cuda_encode, "_deposit_inputs"), (cuda_encode, "_deposit"),
+                   (fused, "encode_streams"), (fused, "encode_from_histogram")]
     blob, enc = capture(fused_calls, ht.compress, silesia, dev)
     blob_wide, enc_wide = capture(fused_calls, ht.compress, wide, dev)
     blob_full, enc_full = capture(fused_calls, ht.compress, full, dev)
+    blob_small = ht.compress(small, dev)
     codebook = bf.ParsedContainer(blob).codebook
     _, enc_host = capture([(cuda_gather, "gather_codes")], ht.compress, silesia, dev, codebook=codebook)
-    _, dec = capture([(bf, "decode_groups"), (bf, "gather_u16_pairs")], ht.decompress, blob, dev)
-    _, dec_tr = capture([(bf, "decode_groups")], ht.decompress, ht.compress(small, dev), dev)
+    _, dec = capture([(bf, "decode_groups")], ht.decompress, blob, dev)
+    _, dec_tr = capture([(bf, "decode_groups")], ht.decompress, blob_small, dev)
     _, dec_wide = capture([(bf, "decode_groups")], ht.decompress, blob_wide, dev)
     _, dec_full = capture([(bf, "decode_groups")], ht.decompress, blob_full, dev)
-    assert not dec["decode_groups"][4] and dec_tr["decode_groups"][4], "decode modes"
+    assert all(d["decode_groups"][4] for d in (dec, dec_tr, dec_wide, dec_full)), "decompress translates in K1"
     assert not enc_wide["gather_rank_canonical"][-1] and enc_full["gather_rank_canonical"][-1], \
         "canonical gather modes"
     raw_fib, fib_pairs = fibonacci_raw(fib)
@@ -355,18 +582,23 @@ def main() -> int:
                          raw_fib.to(dev), fib_pairs, 512, 32)
     K = [a["package_merge"][3] for a in (enc, enc_wide, enc_full, enc_fib)]
     assert K == [4096, 32768, 65536, 4096] and enc_fib["package_merge"][2] == 32, f"tiers {K}"
-    # K10's and K5's inputs, as the deposit path and the unpacked decode
-    # hand them to their kernels.
-    deposit = {name: capture([(cuda_encode, "deposit_streams")], cuda_encode.pack_streams_kernel_deposit,
-                             *e["pack_streams"])[1]["deposit_streams"]
-               for name, e in (("silesia", enc), ("full", enc_full))}
+    # K10's inputs as the compress routes hand them to it, and the stream
+    # assembly's arguments (codes, protocol lengths, real lanes, cap) for
+    # the tensor-op pack_streams. Rank mode (K1 then K2, and K5 unpacked)
+    # is the decode of alphabets past TRANSLATE_MAX_ALPHABET and of the
+    # distributed decoder: its inputs are the decompress calls' in rank mode.
+    deposit = {"silesia": enc["_deposit"], "full": enc_full["_deposit"]}
+    pack_args = {name: (*e["_deposit_inputs"], e["_deposit"][3])
+                 for name, e in (("silesia", enc), ("full", enc_full))}
+    dec_rank = (*dec["decode_groups"][:4], False)
+    pairs_args = (cuda_decode.decode_groups(*dec_rank), dec_rank[2].sym_order)
     unpacked = {name: capture([(cuda_decode, "gather_u16")], cuda_decode.decode_groups,
-                              *d["decode_groups"], False)[1]["gather_u16"]
+                              *d["decode_groups"][:4], False, False)[1]["gather_u16"]
                 for name, d in (("wide30k", dec_wide), ("full", dec_full))}
 
     # The groups are independent, so the silesia-like streams repeated
     # along the groups are a valid 160-group input.
-    streams, n_real, *rest = dec["decode_groups"]
+    streams, n_real, *rest = dec_rank
     dec_160 = (streams.repeat(5, 1), n_real.repeat(5), *rest)
     cg, ce, cd, ch, dc = cuda_gather, cuda_encode, cuda_decode, cuda_hist, device_codebook
     # K6 on a view 2 bytes past a 16-byte boundary, n_valid % 8 == 3: the
@@ -397,19 +629,21 @@ def main() -> int:
         ("pack_lanes", "silesia", ce.pack_lanes, ce.pack_lanes_plain, enc["pack_lanes"], 10, 2),
         ("pack_lanes", "full", ce.pack_lanes, ce.pack_lanes_plain, enc_full["pack_lanes"], 10, 2),
         ("gather_codes", "silesia", cg.gather_codes, cg.gather_codes_plain, enc_host["gather_codes"], 20, 3),
-        ("decode_groups", "rank mode", cd.decode_groups, cd.decode_groups_plain, dec["decode_groups"], 5, 2),
-        ("gather_u16_pairs", "silesia", cg.gather_u16_pairs, cg.gather_u16_pairs_plain,
-         dec["gather_u16_pairs"], 20, 3),
-        ("decode_groups", "translate mode", cd.decode_groups, cd.decode_groups_plain,
+        ("decode_groups", "rank mode, silesia", cd.decode_groups, cd.decode_groups_plain, dec_rank, 5, 2),
+        ("gather_u16_pairs", "silesia", cg.gather_u16_pairs, cg.gather_u16_pairs_plain, pairs_args, 20, 3),
+        ("decode_groups", "translate mode, silesia", cd.decode_groups, cd.decode_groups_plain,
+         dec["decode_groups"], 5, 2),
+        ("decode_groups", "translate mode, 300 symbols", cd.decode_groups, cd.decode_groups_plain,
          dec_tr["decode_groups"], 5, 2),
+        ("decode_groups", "translate mode, full alphabet", cd.decode_groups, cd.decode_groups_plain,
+         dec_full["decode_groups"], 5, 2),
         ("decode_groups", "rank mode, 160 groups", cd.decode_groups, cd.decode_groups_plain,
          dec_160, 5, 1),
-        ("deposit_streams", "silesia", ce.deposit_streams, ce.deposit_streams_plain, deposit["silesia"], 10, 1),
-        ("deposit_streams", "full", ce.deposit_streams, ce.deposit_streams_plain, deposit["full"], 10, 1),
+        ("deposit_streams", "silesia", ce._deposit, ce.deposit_streams_plain, deposit["silesia"], 10, 1),
+        ("deposit_streams", "full", ce._deposit, ce.deposit_streams_plain, deposit["full"], 10, 1),
         ("gather_u16", "wide30k", cg.gather_u16, cg.gather_u16_plain, unpacked["wide30k"], 20, 3),
         ("gather_u16", "full", cg.gather_u16, cg.gather_u16_plain, unpacked["full"], 20, 3),
     ]
-    pack_args = {"silesia": enc["pack_streams"], "full": enc_full["pack_streams"]}
     records, k7_args = {}, {}
     for name, variant, kernel, plain, args, iters, plain_iters in checks:
         got, want = kernel(*args), plain(*args)
@@ -429,21 +663,35 @@ def main() -> int:
             # block's barriers), which the byte and operation bound does
             # not see: the profiler counts them at the end.
             k7_args[variant] = (rec, args)
-        if name == "deposit_streams":
-            # The tensor-op assembly the compress routes use, and the whole
-            # deposit path, on the same inputs: data for a later reroute.
-            pa = pack_args[variant]
-            rec["pack_streams_ms"] = cuda_ms(lambda: ce.pack_streams(*pa), iters)
-            rec["deposit_path_ms"] = cuda_ms(lambda: ce.pack_streams_kernel_deposit(*pa), iters)
-            lib_txt += (f" pack_streams {rec['pack_streams_ms']:.4f} ms"
-                        f" pack_streams_kernel_deposit {rec['deposit_path_ms']:.4f} ms")
         print(f"kernel {name} [{variant}]: shapes {shapes} max_abs_err {err} kernel "
               f"{ms:.4f} ms plain {plain_ms:.4f} ms{lib_txt} bound {bound_ms:.4f} ms "
               f"({bound_by}) ({card})")
         if err != 0:
             raise AssertionError(f"{name} [{variant}]: kernel differs from its plain version")
         records.setdefault(name, []).append(rec)
-    del enc_host, dec, dec_tr, dec_160, checks, deposit, unpacked, enc_fib, hist_odd, canon_odd
+    del enc_host, dec, dec_tr, dec_wide, dec_full, dec_rank, pairs_args, dec_160, checks, deposit, unpacked
+    del enc_fib, hist_odd, canon_odd
+
+    # Phase 2b: the route A/Bs that set the main path's three choices.
+    zipf12k = zipf_pairs(BIG, 12000, np.random.default_rng(13)).tobytes()
+    blob_12k, enc_12k = capture([(fused, "encode_from_histogram")], ht.compress, zipf12k, dev)
+
+    def gather_args(e):
+        sym, n_valid, hist, _ = e["encode_from_histogram"]
+        return hist, int((hist > 0).sum()), sym, n_valid
+
+    t0 = time.perf_counter()
+    ab_records = route_abs(
+        {"silesia_like": enc["encode_streams"], "wide30k": enc_wide["encode_streams"],
+         "full_alphabet": enc_full["encode_streams"]},
+        {"silesia_like": gather_args(enc), "zipf12000": gather_args(enc_12k), "wide30k": gather_args(enc_wide),
+         "full_alphabet": gather_args(enc_full)},
+        {"silesia_like": blob, "zipf12000": blob_12k, "wide30k": blob_wide, "full_alphabet": blob_full,
+         "zipf300_8MiB": blob_small},
+        dev, card, reps=5)
+    print(json.dumps({"route_ab": ab_records, "device": card}))
+    print(f"route A/Bs in {time.perf_counter() - t0:.1f} s")
+    del enc, enc_wide, enc_full, enc_12k, zipf12k, blob_12k
 
     # Phase 3: the paths, counting launches.
     def drive(name, data, **kwargs):
@@ -557,15 +805,19 @@ def main() -> int:
             print(f"ops deposit [{name}]: pack_streams_kernel_deposit equals pack_streams over "
                   f"{int(want_c.sum())} words in {want_c.numel()} groups, zero after")
         for name, blob_x in (("wide30k", blob_wide), ("full", blob_full)):
+            # Rank mode asked for explicitly: K1's ranks, then K2 packed or
+            # K5 unpacked, against the translate mode decompress runs.
             _, d = capture([(bf, "decode_groups")], ht.decompress, blob_x, dev)
-            args = d["decode_groups"]
+            args = d["decode_groups"][:4]
             tables = args[2]
-            got = cuda_decode.decode_groups(*args, False)
-            packed = cuda_gather.gather_u16_pairs(cuda_decode.decode_groups(*args), tables.sym_order)
+            translated = cuda_decode.decode_groups(*args, True)
+            packed = cuda_gather.gather_u16_pairs(cuda_decode.decode_groups(*args, False), tables.sym_order)
+            got = cuda_decode.decode_groups(*args, False, False)
             want = torch.stack([packed & 0xFFFF, (packed >> 16) & 0xFFFF], dim=2).reshape(got.shape)
-            if not torch.equal(got, want):
-                raise AssertionError(f"unpacked decode [{name}] differs from the packed path")
-            print(f"ops unpacked decode [{name}]: {tuple(got.shape)} equals the packed path")
+            if not (torch.equal(packed, translated) and torch.equal(got, want)):
+                raise AssertionError(f"rank-mode decode [{name}] differs from the translate mode")
+            print(f"ops rank-mode decode [{name}]: K1 + K2 equals K1 translate; unpacked (K5) "
+                  f"{tuple(got.shape)} equals the packed pairs")
         B = 512
         n_pairs = len(silesia) // 2
         sym = torch.frombuffer(bytearray(silesia), dtype=torch.int16).to(dev).reshape(-1, B)

@@ -45,9 +45,9 @@ from ..constants import (
     MAX_SYMBOLS,
     NATIVE_MAGIC,
 )
-from ..ops.cuda_decode import TRANSLATE_MAX_ALPHABET, decode_groups
+from ..ops.cuda_decode import decode_groups
 from ..ops.cuda_encode import bucket_words, encode_streams, pack_blocks
-from ..ops.cuda_gather import gather_table_codes, gather_u16_pairs
+from ..ops.cuda_gather import gather_table_codes
 from ..ops.decode import decode_blocks
 from ..ops.fused import encode_device_bytes
 from ..ops.histogram import bytes_to_symbols_device
@@ -434,8 +434,8 @@ def _decode_v1(c: ParsedContainer, device: torch.device) -> np.ndarray:
 
 def _decode_v2(c: ParsedContainer, device: torch.device) -> np.ndarray:
     """Decoded symbols of a v2 container, block-major, as u16."""
-    streams, n_real, tables, B, translate = v2_device_inputs(c, device)
-    out = decode_v2_device(streams, n_real, tables, B, translate)
+    streams, n_real, tables, B = v2_device_inputs(c, device)
+    out = decode_groups(streams, n_real, tables, B, True)
     # (g, step pair, lane) -> (g, lane, step pair): block-major u16 pairs.
     words = out.reshape(c.ngroups, B // 2, GROUP_LANES).transpose(1, 2).contiguous()
     return to_numpy_u32(words).reshape(-1).view("<u2")
@@ -443,7 +443,9 @@ def _decode_v2(c: ParsedContainer, device: torch.device) -> np.ndarray:
 
 def v2_device_inputs(c: ParsedContainer, device: torch.device):
     """What the v2 decode takes on ``device``: (streams (ngroups, W)
-    int32, n_real (ngroups,) int32, tables, block_symbols, translate)."""
+    int32, n_real (ngroups,) int32, tables, block_symbols). The decode
+    translates in K1 at every alphabet (``TRANSLATE_MAX_ALPHABET`` is
+    the whole 16-bit alphabet), so it needs no K2 pass."""
     cb = c.codebook
     if cb.n_unique == 0:
         raise ValueError("corrupt container: symbols but an empty codebook")
@@ -455,12 +457,4 @@ def v2_device_inputs(c: ParsedContainer, device: torch.device):
     streams = from_numpy_u32(stacked.reshape(c.ngroups, -1), device)
     n_real = np.clip(c.num_blocks - GROUP_LANES * np.arange(c.ngroups), 0, GROUP_LANES)
     n_real = torch.from_numpy(n_real.astype(np.int32)).to(device)
-    return streams, n_real, tables, B, cb.n_unique <= TRANSLATE_MAX_ALPHABET
-
-
-def decode_v2_device(streams, n_real, tables, B: int, translate: bool) -> torch.Tensor:
-    """The device decode of a v2 payload to packed symbol pairs, (ngroups,
-    B/2, 8, 128) int32: K1, then K2 for alphabets past the in-kernel
-    tier."""
-    out = decode_groups(streams, n_real, tables, B, translate)
-    return out if translate else gather_u16_pairs(out, tables.sym_order)
+    return streams, n_real, tables, B

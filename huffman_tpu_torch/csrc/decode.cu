@@ -12,7 +12,14 @@
 //      max_len-1, unsigned compares;
 //   2. rank = base[len] + (peek >> (32 - len)), wrapping mod 2^32;
 //   3. translate mode: symbol = sym_table[min(rank, n - 1)] from shared
-//      memory; otherwise the rank itself (K2 translates afterwards);
+//      memory; otherwise the rank itself (K2 translates afterwards). The
+//      table lies in the dynamic shared memory after the ring, sized at
+//      launch from n (2n bytes, up to kMaxTranslate symbols: all 65,536
+//      u16 symbols take 128 KiB beside the ring's 64 KiB), so a small
+//      alphabet keeps the ring's footprint. The lookup is one shared load
+//      a lane and step; random ranks cost bank conflicts, which the A/B
+//      in scripts/torch_route_ab.py weighs against K2's pass over the
+//      output;
 //   4. shift the 64-bit buffer left by len;
 //   5. lanes left with < 33 bits take one word each from the sequential
 //      stream at head + (exclusive count of refilling lanes before them);
@@ -59,7 +66,7 @@ constexpr int kWarps = kLanes / 32;
 constexpr int kMaxCodeLen = 32;
 constexpr int kRefillThreshold = 33;
 constexpr int kPreloadWords = 2;
-constexpr int kMaxTranslate = 1024;  // largest alphabet decoded in-kernel
+constexpr int kMaxTranslate = 65536;  // largest alphabet decoded in-kernel
 constexpr int kRingWords = 16384;    // 64 KiB of dynamic shared memory
 constexpr int kAhead = 8;            // steps a ring copy has to land
 constexpr int kPrefixBits = 12;
@@ -85,6 +92,26 @@ __device__ __forceinline__ void wait_copies() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The n-symbol table into shared memory: 16-byte copies in the ring's
+// first copy group where the source is 16-byte aligned, plain loads for
+// the rest (or all of it).
+__device__ __forceinline__ void copy_table(uint16_t* dst,
+                                           const uint16_t* __restrict__ src,
+                                           int n, int lane) {
+  int done = 0;
+  if (((uintptr_t)src & 15) == 0) {
+    done = n & ~7;
+    for (int i = 8 * lane; i < done; i += 8 * kLanes) {
+      const unsigned d = (unsigned)__cvta_generic_to_shared(dst + i);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                   "l"(src + i)
+                   : "memory");
+    }
+  }
+#pragma unroll 4
+  for (int i = done + lane; i < n; i += kLanes) dst[i] = src[i];
+}
+
 template <bool kTranslate>
 __global__ void __launch_bounds__(kLanes)
 decode_groups_kernel(const uint32_t* __restrict__ streams, int64_t stream_words,
@@ -94,11 +121,13 @@ decode_groups_kernel(const uint32_t* __restrict__ streams, int64_t stream_words,
                      const uint16_t* __restrict__ sym_table, int n_sym,
                      int n_steps, int min_len, int max_len,
                      uint32_t* __restrict__ out) {
-  extern __shared__ uint32_t ring[];  // kRingWords: word w at w % kRingWords
+  // Dynamic: the ring (kRingWords: word w at w % kRingWords), then in
+  // translate mode the n_sym-symbol table.
+  extern __shared__ __align__(16) uint32_t ring[];
+  uint16_t* const s_sym = reinterpret_cast<uint16_t*>(ring + kRingWords);
   __shared__ uint32_t s_bound[kMaxCodeLen];  // the boundaries, ascending
   __shared__ uint32_t s_base[kMaxCodeLen + 1];
   __shared__ uint8_t s_prefix[1 << kPrefixBits];
-  __shared__ uint16_t s_sym[kTranslate ? kMaxTranslate : 1];
   __shared__ int s_warp_cnt[2][kWarps];
 
   const int lane = threadIdx.x;
@@ -112,11 +141,11 @@ decode_groups_kernel(const uint32_t* __restrict__ streams, int64_t stream_words,
     copy_word(&ring[(uint32_t)w % kRingWords], stream + (valid ? w : 0), valid);
   };
   for (int i = lane; i < kRingWords; i += kLanes) copy(i);
+  if (kTranslate) copy_table(s_sym, sym_table, n_sym, lane);
   commit_copies();
 
   const int n_bound = max_len - min_len;  // 0..31
   if (lane < kMaxCodeLen + 1) s_base[lane] = base[lane];
-  if (kTranslate && lane < n_sym) s_sym[lane] = sym_table[lane];
   if (lane < n_bound) {  // rank sort of lj_limit[min_len-1 .. max_len-2]
     const uint32_t v = lj_limit[min_len - 1 + lane];
     int r = 0;
@@ -205,13 +234,23 @@ extern "C" int htpu_decode_groups(const void* streams, int64_t stream_words,
                                   const void* sym_table, int n_sym,
                                   int translate, int n_steps, int min_len,
                                   int max_len, void* out, void* stream) {
+  if (translate && (n_sym < 1 || n_sym > kMaxTranslate))
+    return (int)cudaErrorInvalidValue;
   if (ngroups <= 0) return (int)cudaGetLastError();
+  // The ring, then the table rounded up to 16 bytes. The opt-in ceiling is
+  // the kernel's fixed capacity, the same on every call: the attribute is
+  // the function's, shared by every host thread launching it, while a
+  // launch's own size (and so its occupancy) follows n_sym.
   const size_t ring_bytes = kRingWords * sizeof(uint32_t);
+  const size_t smem =
+      ring_bytes + (translate ? ((size_t)n_sym * 2 + 15) & ~(size_t)15 : 0);
+  const size_t capacity =
+      ring_bytes + (translate ? kMaxTranslate * sizeof(uint16_t) : 0);
   auto kernel = translate ? decode_groups_kernel<true> : decode_groups_kernel<false>;
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ring_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)capacity);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<ngroups, kLanes, ring_bytes, (cudaStream_t)stream>>>(
+  kernel<<<ngroups, kLanes, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)streams, stream_words, (const int32_t*)n_real,
       (const uint32_t*)lj_limit, (const uint32_t*)base,
       (const uint16_t*)sym_table, n_sym, n_steps, min_len, max_len,

@@ -8,8 +8,9 @@ holding steps ``2h`` (low half) and ``2h+1`` (high half) of every lane of
 group ``g`` (lane ``s * 128 + l`` at ``[g, h, s, l]``).
 
 In translate mode (alphabets up to ``TRANSLATE_MAX_ALPHABET``) the words
-hold symbols; otherwise they hold the canonical ranks' low 16 bits, which
-``ops.cuda_gather.gather_u16_pairs`` turns into symbols. Ranks past the
+hold symbols, looked up in the kernel's shared-memory table; in rank mode
+they hold the canonical ranks' low 16 bits, which
+``ops.cuda_gather.gather_u16_pairs`` (K2) turns into symbols. Ranks past the
 alphabet (only possible in corrupt streams) read the last symbol, as in
 the JAX package's numpy twin
 ``huffman_tpu.container.interleave.decode_interleaved_numpy``.
@@ -31,9 +32,12 @@ from ..u32 import MASK32, narrow, shl, widen
 from .cuda_gather import gather_u16
 from .tables import Tables
 
-# Largest alphabet whose symbol table the decode kernel holds in shared
-# memory. Fixed by csrc/decode.cu's table size; not yet tuned on the H100.
-TRANSLATE_MAX_ALPHABET = 1024
+# Largest alphabet the decode kernel translates in-kernel (csrc/decode.cu's
+# kMaxTranslate): its symbol table, 2 bytes a symbol, lies in shared memory
+# beside the stream ring. Measured on the H100 (scripts/torch_route_ab.py,
+# PERF.md): at 32 MiB, translate beats rank mode + K2 at every alphabet up
+# to the full 65,536 symbols, at 32 groups and at 160.
+TRANSLATE_MAX_ALPHABET = 65536
 
 
 def decode_groups(

@@ -6,17 +6,20 @@ counterpart of huffman_tpu/ops/pallas_encode.py.
 step and the final left-aligned partial word. Two stream assemblies build
 the interleaved group streams from it, as the JAX package has two:
 
-* ``pack_streams``, counterpart of ``pack_streams_pallas``: the reverse
-  lookahead and the deposit as vectorised tensor ops, where the JAX package
-  runs an XLA scan and a sorted scatter around its Pallas packer. Both
-  compress routes use it, through ``encode_streams`` (protocol lengths, a
-  bucketed ``words_cap`` from the groups' word totals, and the pack).
 * ``pack_streams_kernel_deposit``, counterpart of the function of that
   name: the fire bits packed 32 steps to a word, then ``deposit_streams``
   (K10, ``csrc/deposit.cu``; counterpart of ``deposit_streams_pallas``),
   which stores every word in its stream slot: blocks walk runs of steps
   backward on their own, from slot bases that are suffix sums of the fire
-  counts.
+  counts. Both compress routes assemble their streams this way, through
+  ``encode_streams`` (protocol lengths, a bucketed ``words_cap`` from the
+  groups' word totals, K4 and K10): on the H100 it takes a third of
+  ``pack_streams``' time (``scripts/torch_route_ab.py``, PERF.md).
+* ``pack_streams``, counterpart of ``pack_streams_pallas``: the reverse
+  lookahead and the deposit as vectorised tensor ops, where the JAX package
+  runs an XLA scan and a sorted scatter around its Pallas packer (the
+  TPU's faster form). No compress route runs it; it stays as the
+  counterpart the tests hold.
 
 ``pack_blocks`` (counterpart of ``pack_blocks_pallas``) scatters the
 staging into per-block ``(nblocks, W)`` slabs: the v1 container's payload.
@@ -183,6 +186,42 @@ def pack_streams(
     return streams, counts + PRELOAD_WORDS * GROUP_LANES
 
 
+def _mask_bits(fire: torch.Tensor) -> torch.Tensor:
+    """(n_lanes, ceil(B / 32)) int32: the (n_lanes, B) bool fire bits
+    packed 32 steps to a word, bit t & 31 of word t >> 5. Eight steps'
+    bools read as one little-endian int64; in each half, four 0/1 bytes
+    times 0x204081 put byte k's bit at bit 21 + k (the partial products
+    never overlap and stay below 2**47), so two nibbles make a byte and
+    four bytes a word. The cheapest of four equal forms on the H100
+    (scripts/torch_route_ab.py, PERF.md)."""
+    n_lanes, B = fire.shape
+    mb = -(-B // 32)
+    if B % 32:
+        fire = torch.nn.functional.pad(fire, (0, mb * 32 - B))
+    v = fire.contiguous().view(torch.int64)
+    lo = (((v & 0xFFFFFFFF) * 0x204081) >> 21) & 15
+    hi = (((v >> 32) * 0x204081) >> 21) & 15
+    return (lo | (hi << 4)).to(torch.uint8).view(torch.int32)
+
+
+def _deposit_inputs(codes: torch.Tensor, eff_lens: torch.Tensor, n_real: int):
+    """(staging, mask_bits, body_words (ngroups,) int32): K4's staging,
+    the packed fire bits and each group's body words, as K10 takes them.
+    A step completes a word when its bits carry the lane's running total
+    past a multiple of 32 (at most one word: lengths are at most 32), which
+    is ``_fires``' test without the per-step word counts."""
+    if codes.shape[0] % GROUP_LANES:
+        raise ValueError("n_lanes must be a multiple of GROUP_LANES")
+    st = pack_lanes(codes, eff_lens)
+    cum = torch.cumsum(eff_lens, dim=1, dtype=torch.int32)
+    fire = (cum & 31) < eff_lens
+    fire[n_real:] = False  # pad lanes
+    words = cum[:, -1] >> 5
+    words[n_real:] = 0
+    body_words = words.reshape(-1, GROUP_LANES).sum(dim=1, dtype=torch.int32)
+    return st, _mask_bits(fire), body_words
+
+
 def pack_streams_kernel_deposit(
     codes: torch.Tensor,     # (n_lanes, B) int32 codewords (0 on garbage steps)
     eff_lens: torch.Tensor,  # (n_lanes, B) int32 protocol lengths
@@ -195,17 +234,7 @@ def pack_streams_kernel_deposit(
     included): the contract of the JAX ``pack_streams_kernel_deposit``.
     Equal to ``pack_streams`` up to each group's count and zero after it.
     Raises ``ValueError`` if a group's body exceeds ``words_cap``."""
-    n_lanes, B = codes.shape
-    if n_lanes % GROUP_LANES:
-        raise ValueError("n_lanes must be a multiple of GROUP_LANES")
-    st = pack_lanes(codes, eff_lens)
-    r, fire = _fires(eff_lens, n_real)
-    # Fire bits 32 steps to a word: bit t & 31 of word t >> 5.
-    mb = -(-B // 32)
-    padded = torch.nn.functional.pad(fire, (0, mb * 32 - B)).reshape(n_lanes, mb, 32)
-    bit = torch.arange(32, device=codes.device)
-    mask_bits = narrow((padded.to(torch.int64) << bit).sum(dim=2))
-    body_words = r[:, -1].reshape(-1, GROUP_LANES).sum(dim=1, dtype=torch.int32)
+    st, mask_bits, body_words = _deposit_inputs(codes, eff_lens, n_real)
     streams = deposit_streams(st, mask_bits, body_words, words_cap)
     return streams, body_words.to(torch.int64) + PRELOAD_WORDS * GROUP_LANES
 
@@ -232,7 +261,17 @@ def deposit_streams(
     if body_words.shape != (ngroups,):
         raise ValueError("body_words must be (ngroups,)")
     _check_cap(int(body_words.max()) if ngroups else 0, words_cap)
+    return _deposit(staging, mask_bits, body_words, words_cap)
+
+
+def _deposit(staging, mask_bits, body_words, words_cap: int) -> torch.Tensor:
+    """K10 (the plain version for CPU tensors) on inputs that
+    ``deposit_streams`` has checked, or that ``encode_streams`` built with
+    ``words_cap`` bounding every group by construction."""
+    dev = staging.device
     if dev.type == "cuda":
+        n_lanes, B1 = staging.shape
+        ngroups = n_lanes // GROUP_LANES
         cap = -(-words_cap // GROUP_LANES) * GROUP_LANES
         out = torch.empty((ngroups, PRELOAD_WORDS * GROUP_LANES + cap), dtype=torch.int32, device=dev)
         kernels.launch(
@@ -295,16 +334,17 @@ def encode_streams(
     min_len,                # shortest code length: int or 0-dim tensor
     n_real: int,            # real block lanes
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Interleaved group streams of a coded block grid: ``pack_streams``
-    with the protocol lengths (garbage steps past the data consume
-    ``min_len`` zero bits) and the bucketed ``words_cap`` of the host
-    container path. Reads the groups' largest word total to the host."""
-    n_lanes, B = codes.shape
-    dev = codes.device
-    pos = torch.arange(n_lanes * B, device=dev).reshape(n_lanes, B)
-    eff = torch.where(pos < n_pairs, lens, min_len).to(torch.int32)
-    lane = torch.arange(n_lanes, device=dev)
-    bits = torch.where(lane < n_real, eff.sum(dim=1), 0)
-    gwords = (bits >> 5).reshape(-1, GROUP_LANES).sum(dim=1)
-    cap = bucket_words(max(int(gwords.max()), 128))
-    return pack_streams(codes, eff, n_real, cap)
+    """Interleaved group streams of a coded block grid, as
+    ``pack_streams_kernel_deposit`` builds them (K4, then K10): the
+    protocol lengths (garbage steps past the data consume ``min_len`` zero
+    bits) and the bucketed ``words_cap`` of the host container path.
+    Returns (streams (ngroups, 2048 + cap') int32 bits, counts (ngroups,)
+    int64); readers trim each group to its count. The groups' largest body
+    is read to the host once, to size the buffer, which then bounds every
+    group by construction."""
+    eff = lens.to(torch.int32, memory_format=torch.contiguous_format, copy=True)
+    eff.view(-1)[n_pairs:].fill_(min_len)  # positions are row-major
+    st, mask_bits, body_words = _deposit_inputs(codes, eff, n_real)
+    cap = bucket_words(max(int(body_words.max()), 128))
+    streams = _deposit(st, mask_bits, body_words, cap)
+    return streams, body_words.to(torch.int64) + PRELOAD_WORDS * GROUP_LANES

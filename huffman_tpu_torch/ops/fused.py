@@ -8,7 +8,7 @@ From the uploaded bytes to the interleaved streams with no host codebook:
 histogram (K6) -> package-merge lengths at the input's alphabet tier (K7)
 -> canonical tables (tensor ops) -> rank gather (K8 below
 ``CANON_GATHER_MIN_CAP``, K9 at and above it, K9 with identity addressing
-at the full alphabet) -> lane pack (K4) and stream assembly. The host
+at the full alphabet) -> lane pack (K4) and stream deposit (K10). The host
 reads back the alphabet size (to pick the tier), the groups' largest word
 total (to size the stream buffer), the (65536,) lengths (for the header)
 and the trimmed streams. Length limits of 27..32 bits do not fit the
@@ -43,9 +43,11 @@ from .histogram import bytes_to_symbols_device
 from .tables import PACKED_MAX_LEN
 
 # Tiers with at least this cap gather through canonical ranks (K9), smaller
-# ones through the packed-code rank-select table (K8). The JAX package's
-# boundary, kept so that all three gather schemes run; not yet measured on
-# the H100.
+# ones through the packed-code rank-select table (K8). Measured on the H100
+# (scripts/torch_route_ab.py, PERF.md): at tier 4096 the whole
+# tiered_code_gather with K9 is not faster than with K8 by more than the
+# spread of either (table building and K7 dwarf the kernels' difference),
+# so the boundary stays where it was.
 CANON_GATHER_MIN_CAP = 16384
 
 
@@ -69,28 +71,39 @@ def tiered_code_gather(
     cap = tier_for(n_unique)
     lengths = device_code_lengths(hist, max_len, cap, n_unique)
     tabs = device_canonical_tables(lengths)
-    present = lengths > 0
-    if cap < CANON_GATHER_MIN_CAP:
-        enc_packed = narrow((widen(tabs.enc_lens) << 26) | widen(tabs.enc_codes))
-        maskw, cums, dense = build_rank_select(enc_packed, present, cap)
-        codes, lens = gather_rank_select(symbols, n_valid, maskw, cums, dense)
-        return lengths, codes, lens, cap
+    gather = rank_select_codes if cap < CANON_GATHER_MIN_CAP else canonical_rank_codes
+    codes, lens = gather(tabs, lengths > 0, cap, symbols, n_valid, max_len)
+    return lengths, codes, lens, cap
+
+
+def rank_select_codes(tabs, present, cap, symbols, n_valid, max_len):
+    """(codes, lens) by K8: the packed ``len << 26 | code`` words of the
+    present symbols in a rank-select table of ``cap`` entries."""
+    enc_packed = narrow((widen(tabs.enc_lens) << 26) | widen(tabs.enc_codes))
+    maskw, cums, dense = build_rank_select(enc_packed, present, cap)
+    return gather_rank_select(symbols, n_valid, maskw, cums, dense)
+
+
+def canonical_rank_codes(tabs, present, cap, symbols, n_valid, max_len):
+    """(codes, lens) by K9: each symbol's canonical rank from a packed-16
+    table (a rank-select stage below the full alphabet, addressed by the
+    symbol itself at it), then its length and code from ``start`` and
+    ``base``."""
     identity = cap >= MAX_SYMBOLS
     if identity:
         # Every symbol slot has an entry: the table is sym_rank itself,
         # addressed by the symbol, and the rank stage is skipped.
         ranks = tabs.sym_rank.to(torch.int64)
-        maskw = torch.zeros(RANK_WORDS, dtype=torch.int32, device=hist.device)
+        maskw = torch.zeros(RANK_WORDS, dtype=torch.int32, device=symbols.device)
         cums = torch.zeros_like(maskw)
     else:
         maskw, cums, dense = build_rank_select(tabs.sym_rank, present, cap)
         ranks = widen(dense)
     canon16 = narrow(ranks[0::2] | (ranks[1::2] << 16))
-    codes, lens = gather_rank_canonical(
+    return gather_rank_canonical(
         symbols, n_valid, maskw, cums, canon16, tabs.start, tabs.base,
         max_len, identity,
     )
-    return lengths, codes, lens, cap
 
 
 def encode_device(

@@ -168,6 +168,77 @@ def test_decode_kernel_edges(dev, case, translate):
     assert torch.equal(got, cuda_decode.decode_groups_plain(s, n, t, B, translate))
 
 
+TRANSLATE_CASES = [(n, g, 0) for n in (1025, 4096, 30000, 65536) for g in (32, 160)] + [
+    (65536, 32, 1), (30000, 32, 3),  # the table 2 and 6 bytes past a 16-byte boundary
+]
+
+
+@pytest.mark.parametrize("n_sym,ngroups,offset", [
+    c for c in TRANSLATE_CASES if c[0] <= cuda_decode.TRANSLATE_MAX_ALPHABET
+])
+def test_translate_kernel_at_capacity(dev, n_sym, ngroups, offset):
+    """K1 in translate mode with its symbol table in dynamic shared memory,
+    sized from the alphabet, against its plain version and against rank
+    mode + K2, at 32 groups and at 160 (more blocks than SMs: the streams
+    repeated along the groups); the table also as a view off a 16-byte
+    boundary (its plain-load path)."""
+    B = 4
+    symbols, cb, streams = _streams(n_sym, 32 * GROUP_LANES, B, n_sym, 18)
+    assert cb.n_unique == n_sym
+    stacked, _ = il.pad_streams(streams)
+    s = torch.from_numpy(stacked.reshape(32, -1).view(np.int32)).to(dev).repeat(ngroups // 32, 1)
+    n = torch.full((ngroups,), GROUP_LANES, dtype=torch.int32, device=dev)
+    t = tables_from_codebook(cb, dev)
+    if offset:
+        padded = torch.cat([torch.zeros(offset, dtype=torch.int16, device=dev), t.sym_order])
+        t = t._replace(sym_order=padded[offset:])
+        assert t.sym_order.data_ptr() % 16 == 2 * offset
+    kernels.reset_launch_counts()
+    got = cuda_decode.decode_groups(s, n, t, B, True)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decode_groups"] == 1
+    assert torch.equal(got, cuda_decode.decode_groups_plain(s, n, t, B, True))
+    rank = cuda_gather.gather_u16_pairs(cuda_decode.decode_groups(s, n, t, B, False), t.sym_order)
+    assert torch.equal(got, rank)
+    words = got[:32].reshape(32, B // 2, GROUP_LANES).transpose(1, 2).contiguous()
+    np.testing.assert_array_equal(words.cpu().numpy().view("<u2").reshape(-1)[: symbols.size], symbols)
+
+
+def test_translate_kernel_from_two_threads(dev):
+    """Two host threads decode streams of different alphabets (a 2 KiB and
+    a 128 KiB table) in translate mode, 200 times each: every launch runs
+    and gives the same words (the shared-memory opt-in is the kernel's, so
+    one thread's launch must not change what the other's may use)."""
+    import threading
+
+    B = 4
+    cases = []
+    for seed, n_sym in ((1025, 1025), (65536, 65536)):
+        _, cb, streams = _streams(seed, 32 * GROUP_LANES, B, n_sym, 18)
+        stacked, _ = il.pad_streams(streams)
+        s = torch.from_numpy(stacked.reshape(32, -1).view(np.int32)).to(dev)
+        n = torch.full((32,), GROUP_LANES, dtype=torch.int32, device=dev)
+        t = tables_from_codebook(cb, dev)
+        cases.append((s, n, t, cuda_decode.decode_groups_plain(s, n, t, B, True)))
+    errors = []
+
+    def run(s, n, t, want):
+        try:
+            for _ in range(200):
+                got = cuda_decode.decode_groups(s, n, t, B, True)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want)
+        except BaseException as e:  # noqa: BLE001 - reported by the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=c) for c in cases]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors, errors
+
+
 @pytest.mark.parametrize("n_lanes,B,kind", [(1, 1, "mixed"), (13, 2, "mixed"), (1001, 30, "mixed"),
                                             (3001, 512, "mixed"), (37, 4099, "mixed"),
                                             (259, 512, "runs32"), (259, 513, "runs0"),
@@ -233,7 +304,7 @@ def test_slice_at_benchmark_size(dev):
         blob = huffman_tpu_torch.compress(data, dev)
         counts = kernels.launch_counts()
         assert counts["histogram"] == 1 and counts["package_merge"] == 1
-        assert counts["gather_rank_select" if tier < 16384 else "gather_rank_canonical"] == 1
+        assert counts["gather_rank_select" if tier < fused.CANON_GATHER_MIN_CAP else "gather_rank_canonical"] == 1
         assert blob == huffman_tpu.compress(data, backend="numpy")
         assert huffman_tpu_torch.decompress(blob, dev) == data
 
@@ -498,6 +569,60 @@ def test_unpacked_decode_on_the_card(dev, alphabet):
     ngroups = s.shape[0]
     dec = got.reshape(ngroups, B, GROUP_LANES).transpose(1, 2).reshape(-1).cpu().numpy()
     np.testing.assert_array_equal(dec[: symbols.size], symbols)
+
+
+@pytest.mark.parametrize("alphabet", [300, 4000, 65536])
+def test_unpacked_rank_decode_on_the_card(dev, alphabet):
+    """``packed_out=False`` in rank mode at every alphabet size: K1's
+    ranks, unpacked, through K5."""
+    symbols, cb, s, n, B = _unpacked_case(dev, alphabet, 18)
+    t = tables_from_codebook(cb, dev)
+    kernels.reset_launch_counts()
+    got = cuda_decode.decode_groups(s, n, t, B, False, packed_out=False)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["gather_u16"] == 1
+    ngroups = s.shape[0]
+    dec = got.reshape(ngroups, B, GROUP_LANES).transpose(1, 2).reshape(-1).cpu().numpy()
+    np.testing.assert_array_equal(dec[: symbols.size], symbols)
+
+
+def _route_sizes(monkeypatch):
+    """A 2 MiB input on the fused route (its pair threshold lowered)."""
+    monkeypatch.setattr(bf, "DEVICE_MIN_PAIRS", 1 << 16)
+    return silesia_like(2 << 20, seed=3).tobytes() + b"\x05"
+
+
+@pytest.mark.parametrize("route", ["fused", "host codebook", "htpx per-shard"])
+def test_compress_routes_assemble_streams_by_deposit(dev, route, monkeypatch):
+    """A small compress on each v2 route (the fused route, a given
+    codebook, HTPX shards) writes the CPU path's bytes (and the JAX
+    package's) and assembles its streams with K4 + K10, then decodes in
+    translate mode without K2."""
+    from huffman_tpu_torch.container import sharded
+
+    data = _route_sizes(monkeypatch)
+    if route == "fused":
+        run = lambda d: huffman_tpu_torch.compress(data, d)  # noqa: E731
+        want = huffman_tpu.compress(data, backend="numpy")
+    elif route == "host codebook":
+        cb = bf.ParsedContainer(huffman_tpu_torch.compress(data, "cpu")).codebook
+        run = lambda d: huffman_tpu_torch.compress(data, d, codebook=cb)  # noqa: E731
+        want = None
+    else:
+        run = lambda d: sharded.compress(data, n_shards=3, codebook_mode="per-shard", device=d)  # noqa: E731
+        want = None
+    kernels.reset_launch_counts()
+    blob = run(dev)
+    counts = kernels.launch_counts()
+    assert counts["pack_lanes"] >= 1 and counts["deposit_streams"] == counts["pack_lanes"]
+    assert bool(counts["histogram"]) == (route != "host codebook")  # HTPX's shards take the fused route
+    assert blob == run("cpu")
+    if want is not None:
+        assert blob == want
+    kernels.reset_launch_counts()
+    assert huffman_tpu_torch.decompress(blob, dev) == data
+    counts = kernels.launch_counts()
+    assert counts["decode_groups"] >= 1 and counts["gather_u16_pairs"] == 0
 
 
 def test_v1_reference_and_deep_codes_at_benchmark_size(dev):

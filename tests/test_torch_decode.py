@@ -1,9 +1,14 @@
 """Port decode (K1 plain version + K2) against the JAX Pallas decoder run
-in interpret mode and against the numpy protocol twin.
+in interpret mode and against the numpy protocol twin, in translate mode
+(the route's mode up to ``TRANSLATE_MAX_ALPHABET``) and in rank mode + K2
+(past it, and the distributed decoder's) for every alphabet.
 
 Exact equality on every word, garbage lanes and steps included: the codec
 is bit-exact by design.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -68,12 +73,15 @@ def _setup(seed, n_real, B, alphabet_size, max_len):
     return symbols, cb, streams
 
 
-def _port_decode(cb, streams, n_real, B):
+def _port_decode(cb, streams, n_real, B, translate=None):
+    """The port's decode to symbol pairs, in ``translate`` mode or (None)
+    the mode the decompress route picks for the alphabet."""
     stacked, _ = il.pad_streams(streams)
     ngroups = len(streams)
     t = tables_from_codebook(cb, CPU)
     n_real_g = np.clip(n_real - GROUP_LANES * np.arange(ngroups), 0, GROUP_LANES)
-    translate = cb.n_unique <= TRANSLATE_MAX_ALPHABET
+    if translate is None:
+        translate = cb.n_unique <= TRANSLATE_MAX_ALPHABET
     out = decode_groups(
         torch.from_numpy(stacked.reshape(ngroups, -1).view(np.int32)),
         torch.from_numpy(n_real_g.astype(np.int32)),
@@ -84,12 +92,14 @@ def _port_decode(cb, streams, n_real, B):
     return out.numpy(), translate
 
 
-def _jax_decode(cb, streams, n_real, B, translate):
+def _jax_decode(cb, streams, n_real, B):
+    """The JAX decoder's symbol pairs, in its own mode for the alphabet
+    (translate up to its in-kernel tier, else ranks through
+    ``sym_order_dev``): the same words as either of the port's modes."""
     stacked, _ = il.pad_streams(streams)
     ngroups = len(streams)
     rows_per = stacked.shape[0] // ngroups
-    symtab, sym_rows, tr_ok = pd.build_symtab(cb.sym_order)
-    assert tr_ok == translate  # the port keeps the JAX in-kernel tier boundary
+    symtab, sym_rows, translate = pd.build_symtab(cb.sym_order)
     meta = np.zeros((ngroups, 4), dtype=np.int32)
     meta[:, 0] = np.clip(n_real - GROUP_LANES * np.arange(ngroups), 0, GROUP_LANES)
     out = pd.decode_groups(
@@ -104,13 +114,12 @@ def _jax_decode(cb, streams, n_real, B, translate):
     return np.asarray(out)
 
 
-@pytest.mark.parametrize("alphabet,max_len", DECODE_CASES)
-def test_decode_groups_matches_jax_and_twin(alphabet, max_len):
+def _check_decode(alphabet, max_len, translate=None):
     B, n_real = 32, 1500
     symbols, cb, streams = _setup(alphabet + max_len, n_real, B, alphabet, max_len)
     assert cb.n_unique == alphabet and cb.max_len <= max_len
-    port, translate = _port_decode(cb, streams, n_real, B)
-    np.testing.assert_array_equal(port, _jax_decode(cb, streams, n_real, B, translate))
+    port, translate = _port_decode(cb, streams, n_real, B, translate)
+    np.testing.assert_array_equal(port, _jax_decode(cb, streams, n_real, B))
 
     ngroups = len(streams)
     twin = np.stack([
@@ -126,26 +135,51 @@ def test_decode_groups_matches_jax_and_twin(alphabet, max_len):
     dec = port.reshape(ngroups, B // 2, GROUP_LANES).transpose(0, 2, 1)
     dec = np.ascontiguousarray(dec).view("<u2").reshape(-1)[: symbols.size]
     np.testing.assert_array_equal(dec, symbols)
+    return translate
+
+
+@pytest.mark.parametrize("alphabet,max_len", DECODE_CASES)
+def test_decode_groups_matches_jax_and_twin(alphabet, max_len):
+    """The mode the decompress route picks: translate for every alphabet
+    up to ``TRANSLATE_MAX_ALPHABET``."""
+    assert _check_decode(alphabet, max_len) == (alphabet <= TRANSLATE_MAX_ALPHABET)
+
+
+@pytest.mark.parametrize("alphabet,max_len", DECODE_CASES)
+def test_decode_groups_rank_mode_matches_jax_and_twin(alphabet, max_len):
+    """Rank mode + K2 at every alphabet size: the decode past the translate
+    boundary and the distributed decoder's."""
+    _check_decode(alphabet, max_len, translate=False)
+
+
+def test_translate_boundary_is_the_kernels_capacity():
+    """``TRANSLATE_MAX_ALPHABET`` is csrc/decode.cu's ``kMaxTranslate``,
+    the table capacity its launch accepts."""
+    src = (Path(__file__).resolve().parents[1] / "huffman_tpu_torch" / "csrc" / "decode.cu").read_text()
+    assert int(re.search(r"constexpr int kMaxTranslate = (\d+);", src).group(1)) == TRANSLATE_MAX_ALPHABET
+    assert TRANSLATE_MAX_ALPHABET >= 1024
 
 
 @pytest.mark.parametrize("alphabet,max_len", [(300, 12), (1025, 18), (4000, 18)])
 def test_unpacked_decode_matches_jax(alphabet, max_len):
     """``packed_out=False``: one symbol per int32 in JAX's (ngroups *
-    n_steps, 8, 128) layout; in rank mode (alphabets past the in-kernel
-    tier) the ranks are translated by K5's plain version, as the JAX
-    decoder translates them with ``sym_order_dev``."""
+    n_steps, 8, 128) layout, in translate mode and in rank mode (the ranks
+    translated by K5's plain version, as the JAX decoder translates them
+    with ``sym_order_dev``), against the JAX decoder in its own mode."""
     B, n_real = 16, 1100
     symbols, cb, streams = _setup(alphabet + 7, n_real, B, alphabet, max_len)
     stacked, _ = il.pad_streams(streams)
     ngroups = len(streams)
     n_real_g = np.clip(n_real - GROUP_LANES * np.arange(ngroups), 0, GROUP_LANES)
-    translate = cb.n_unique <= TRANSLATE_MAX_ALPHABET
-    got = decode_groups(
-        torch.from_numpy(stacked.reshape(ngroups, -1).view(np.int32)),
-        torch.from_numpy(n_real_g.astype(np.int32)),
-        tables_from_codebook(cb, CPU), B, translate, packed_out=False,
-    )
-    symtab, sym_rows, _ = pd.build_symtab(cb.sym_order)
+    port = {
+        mode: decode_groups(
+            torch.from_numpy(stacked.reshape(ngroups, -1).view(np.int32)),
+            torch.from_numpy(n_real_g.astype(np.int32)),
+            tables_from_codebook(cb, CPU), B, mode, packed_out=False,
+        )
+        for mode in (True, False) if not mode or cb.n_unique <= TRANSLATE_MAX_ALPHABET
+    }
+    symtab, sym_rows, translate = pd.build_symtab(cb.sym_order)
     meta = np.zeros((ngroups, 4), dtype=np.int32)
     meta[:, 0] = n_real_g
     want = np.asarray(pd.decode_groups(
@@ -157,10 +191,12 @@ def test_unpacked_decode_matches_jax(alphabet, max_len):
         sym_order_dev=None if translate else jnp.asarray(cb.sym_order.astype(np.int32)),
         packed_out=False,
     ))
-    assert got.shape == want.shape == (ngroups * B, 8, 128)
-    np.testing.assert_array_equal(got.numpy(), want)
-    dec = got.numpy().reshape(ngroups, B, GROUP_LANES).transpose(0, 2, 1).reshape(-1)
-    np.testing.assert_array_equal(dec[: symbols.size], symbols)
+    assert len(port) == 2  # translate reaches every alphabet of these cases
+    for got in port.values():
+        assert got.shape == want.shape == (ngroups * B, 8, 128)
+        np.testing.assert_array_equal(got.numpy(), want)
+        dec = got.numpy().reshape(ngroups, B, GROUP_LANES).transpose(0, 2, 1).reshape(-1)
+        np.testing.assert_array_equal(dec[: symbols.size], symbols)
 
 
 def _table_length(lj, min_len, max_len, peek):

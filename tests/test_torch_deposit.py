@@ -3,7 +3,11 @@ package's ``deposit_streams_pallas`` in interpret mode, and the port's
 ``pack_streams_kernel_deposit`` against the JAX function of that name, the
 tensor-op ``pack_streams`` and the host protocol
 ``build_interleaved_streams``. The cases are those of
-tests/test_pallas_encode.py, at an exact and a loose cap. Exact equality."""
+tests/test_pallas_encode.py, at an exact and a loose cap. Also
+``encode_streams``, the compress routes' stream assembly through K4 +
+K10 with its own bucketed cap, against ``pack_streams`` and the JAX
+``pack_streams_pallas``, and K10's inputs as ``_deposit_inputs`` builds
+them against the per-step word counts of ``_fires``. Exact equality."""
 
 import numpy as np
 import pytest
@@ -100,6 +104,100 @@ def test_deposit_rejects_a_small_cap():
     codes, eff, _ = _case(*CASES[0])
     with pytest.raises(ValueError, match="words_cap"):
         ce.pack_streams_kernel_deposit(_t(codes), _t(eff), CASES[0][1], 16)
+
+
+ENCODE_CASES = [  # seed, n_groups, B, min_len, max_len, n_pairs
+    (0, 1, 32, 1, 18, 1000 * 32 - 7),   # pad lanes, garbage steps in the last real lane
+    (1, 3, 16, 1, 29, 2400 * 16 - 3),   # three groups, codes up to 29 bits
+    (2, 1, 2, 32, 32, 2048),            # all-32 codes: the body is exactly the bucketed cap
+    (3, 3, 8, 3, 12, 2049 * 8 + 5),     # the last group holds two real lanes
+    (4, 1, 512, 1, 18, 5),              # one lane, five symbols
+]
+
+
+def _encode_case(seed, n_groups, B, min_len, max_len, n_pairs):
+    """(codes, lens, n_real): random codes of random lengths on the first
+    ``n_pairs`` positions (row-major), code and length 0 past them."""
+    rng = np.random.default_rng(seed)
+    n_lanes = n_groups * GROUP_LANES
+    lens = rng.integers(min_len, max_len + 1, size=(n_lanes, B)).astype(np.int32)
+    codes = (rng.integers(0, 1 << 32, size=(n_lanes, B), dtype=np.uint64)
+             & ((np.uint64(1) << lens.astype(np.uint64)) - np.uint64(1))).astype(np.uint32)
+    valid = (np.arange(n_lanes * B) < n_pairs).reshape(n_lanes, B)
+    return np.where(valid, codes, 0).astype(np.uint32), np.where(valid, lens, 0).astype(np.int32), -(-n_pairs // B)
+
+
+@pytest.mark.parametrize("case", ENCODE_CASES, ids=[str(c[0]) for c in ENCODE_CASES])
+def test_encode_streams_deposit_route_matches_pack_streams_and_pallas(case, monkeypatch):
+    """``encode_streams`` (protocol lengths, the bucketed cap, K4 + K10)
+    against the tensor-op ``pack_streams`` and the JAX
+    ``pack_streams_pallas`` at that cap: the same counts, the same words up
+    to each count, zeros after them; K10 runs once, ``pack_streams``
+    never."""
+    seed, n_groups, B, min_len, max_len, n_pairs = case
+    codes, lens, n_real = _encode_case(*case)
+    eff = np.where((np.arange(codes.size) < n_pairs).reshape(codes.shape), lens, min_len).astype(np.int32)
+    eff_real = np.where((np.arange(codes.shape[0]) < n_real)[:, None], eff, 0)
+    body_max = int((eff_real.sum(axis=1) >> 5).reshape(-1, GROUP_LANES).sum(axis=1).max())
+    cap = ce.bucket_words(max(body_max, 128))
+    if seed == 2:
+        assert body_max == cap
+    calls = []
+    real_deposit, real_pack = ce._deposit, ce.pack_streams
+    monkeypatch.setattr(ce, "_deposit", lambda *a: calls.append("K10") or real_deposit(*a))
+    monkeypatch.setattr(ce, "pack_streams", lambda *a: calls.append("pack_streams") or real_pack(*a))
+    min_len_t = torch.tensor(min_len, dtype=torch.int32)  # as the fused route passes it
+    streams, counts = ce.encode_streams(_t(codes), _t(lens), n_pairs, min_len_t, n_real)
+    monkeypatch.undo()
+    assert calls == ["K10"]
+    assert streams.shape == (n_groups, PRELOAD_WORDS * GROUP_LANES + -(-cap // GROUP_LANES) * GROUP_LANES)
+    tensor_s, tensor_c = ce.pack_streams(_t(codes), _t(eff), n_real, cap)
+    want_s, want_c = pe.pack_streams_pallas(
+        jnp.asarray(codes), jnp.asarray(eff), jnp.int32(n_real), words_cap=cap, interpret=True,
+    )
+    np.testing.assert_array_equal(counts.numpy(), tensor_c.numpy())
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(want_c))
+    got = streams.numpy().view(np.uint32)
+    for g, n in enumerate(counts.tolist()):
+        np.testing.assert_array_equal(got[g, :n], tensor_s.numpy().view(np.uint32)[g, :n])
+        np.testing.assert_array_equal(got[g, :n], np.asarray(want_s)[g, :n])
+        assert not got[g, n:].any()
+
+
+def test_deposit_streams_checks_a_callers_cap():
+    """The public ``deposit_streams`` keeps its check of a caller's
+    ``words_cap``: one word below the largest body raises, the body itself
+    passes and equals the assembly ``encode_streams`` builds."""
+    codes, lens, n_real = _encode_case(*ENCODE_CASES[0])
+    n_pairs = ENCODE_CASES[0][5]
+    eff = np.where((np.arange(codes.size) < n_pairs).reshape(codes.shape), lens, 1).astype(np.int32)
+    st, mask, body = ce._deposit_inputs(_t(codes), _t(eff), n_real)
+    with pytest.raises(ValueError, match="words_cap"):
+        ce.deposit_streams(st, mask, body, int(body.max()) - 1)
+    tight = ce.deposit_streams(st, mask, body, int(body.max()))
+    streams, counts = ce.encode_streams(_t(codes), _t(lens), n_pairs, 1, n_real)
+    for g, n in enumerate(counts.tolist()):
+        assert torch.equal(tight[g, :n], streams[g, :n])
+
+
+@pytest.mark.parametrize("B", [1, 2, 31, 32, 33, 64, 513])
+def test_deposit_inputs_match_the_word_counts(B):
+    """K10's inputs as ``_deposit_inputs`` builds them (a step fires when
+    its bits carry the running total past a multiple of 32; the fire bits
+    packed by a multiply that gathers four bool bytes into a nibble) equal
+    those of the per-step word counts of ``_fires`` with an int64
+    shift-sum of the fire bits, for lengths 0..32, runs of 32 and of 0, B
+    not a multiple of 32, and any number of real lanes."""
+    rng = np.random.default_rng(B)
+    eff = rng.integers(0, 33, size=(2 * GROUP_LANES, B)).astype(np.int32)
+    eff[::3, : B // 2] = 32
+    eff[1::3, B // 2 :] = 0
+    codes = np.zeros_like(eff)
+    for n_real in (0, 1, 1500, 2 * GROUP_LANES):
+        staging, mask, body = ce._deposit_inputs(_t(codes), _t(eff), n_real)
+        want = _kernel_inputs(codes, eff, n_real, B)
+        for got, w in zip((staging, mask, body), want):
+            assert torch.equal(got, w), n_real
 
 
 def _kernel_inputs(codes, eff, n_real, B):

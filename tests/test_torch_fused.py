@@ -15,6 +15,7 @@ import huffman_tpu
 import huffman_tpu_torch
 from huffman_tpu.container import block_format as jbf
 from huffman_tpu.ops import pallas_gather as jpg
+from huffman_tpu.codebook import Codebook as JaxCodebook
 from huffman_tpu.codebook import package_merge_lengths as jax_package_merge_lengths
 from huffman_tpu.ops.fused import encode_device as jax_encode_device
 from huffman_tpu.ops.fused import encode_device_bytes as jax_encode_device_bytes
@@ -466,6 +467,46 @@ def _lanes(sym: np.ndarray, B: int) -> np.ndarray:
     out = np.zeros(n_lanes * B, np.uint16)
     out[: sym.size] = sym
     return out
+
+
+@pytest.mark.parametrize("n_unique", [4095, 4096, 4097, 16384, 16385])
+@pytest.mark.parametrize("form", ["route", "K8", "K9"])
+def test_tiered_code_gather_at_the_gather_boundary(n_unique, form, monkeypatch):
+    """``tiered_code_gather`` below, at and past the tier caps on either
+    side of ``CANON_GATHER_MIN_CAP`` (n_unique equal to a tier included),
+    through the gather the constant picks and through each gather forced:
+    the lengths, codes and code lengths equal the JAX package's codebook
+    (package-merge of the same histogram) at every valid position, 0
+    past ``n_valid``."""
+    rng = np.random.default_rng(n_unique)
+    alpha = rng.choice(65536, n_unique, replace=False)
+    p = 1.0 / np.arange(1, n_unique + 1) ** 0.9
+    sym = np.concatenate([alpha, rng.choice(alpha, 2 * n_unique, p=p / p.sum())]).astype(np.uint16)
+    rng.shuffle(sym)
+    B, n_valid = 8, sym.size
+    padded = _lanes(sym, B)
+    t = _u16(padded).reshape(-1, B)
+    cap = fused.tier_for(n_unique)
+    want_form = "K8" if cap < fused.CANON_GATHER_MIN_CAP else "K9"
+    if form != "route":
+        monkeypatch.setattr(fused, "CANON_GATHER_MIN_CAP", cap + 1 if form == "K8" else 0)
+        want_form = form
+    ran = []
+    for name, tag in (("gather_rank_select", "K8"), ("gather_rank_canonical", "K9")):
+        def record(*a, _fn=getattr(fused, name), _tag=tag):
+            ran.append(_tag)
+            return _fn(*a)
+
+        monkeypatch.setattr(fused, name, record)
+    lengths, codes, lens, got_cap = fused.tiered_code_gather(
+        histogram(t, n_valid), n_unique, t, n_valid, max_len=18
+    )
+    assert got_cap == cap and ran == [want_form]
+    cb = JaxCodebook.from_lengths(jax_package_merge_lengths(np.bincount(sym, minlength=65536), 18))
+    np.testing.assert_array_equal(lengths.numpy(), cb.lengths)
+    valid = np.arange(padded.size) < n_valid
+    np.testing.assert_array_equal(codes.numpy().reshape(-1).view(np.uint32), np.where(valid, cb.codes[padded], 0))
+    np.testing.assert_array_equal(lens.numpy().reshape(-1), np.where(valid, cb.lengths[padded], 0))
 
 
 @pytest.mark.parametrize("max_len", [27, 28, 29, 30, 31, 32])
