@@ -24,6 +24,11 @@ alphabets past the in-kernel tier, and the block-major reorder of
 ``_postpack_v2``; v1 runs ``ops/decode.py``'s ``decode_blocks`` on the
 slabs.
 
+Each call is a root span of ``utils/profiling.py`` (``compress``,
+``decompress``) with its stages as spans inside it, and counts its input
+and output bytes; the copies between host and card count their pageable
+bytes.
+
 Both routes write containers byte-identical to ``huffman_tpu.compress(data,
 backend="numpy")``: the fused route's package-merge lengths equal the
 host's, and the streams follow the same decode protocol.
@@ -53,6 +58,7 @@ from ..ops.fused import encode_device_bytes
 from ..ops.histogram import bytes_to_symbols_device
 from ..ops.tables import PACKED_MAX_LEN, tables_from_codebook
 from ..u32 import from_numpy_u32, to_numpy_u32
+from ..utils.profiling import copied, count, span
 from . import interleave as il
 from .reference_format import bytes_to_symbols, histogram_host, symbols_to_bytes
 
@@ -69,9 +75,10 @@ DEVICE_MIN_PAIRS = 1 << 21
 # --------------------------------------------------------------------------
 
 def _codebook_to_header(cb: Codebook) -> bytes:
-    lens_in_order = cb.lengths[cb.sym_order]
-    counts = np.bincount(lens_in_order, minlength=MAX_CODE_LEN + 1)[1:].astype("<u4")
-    return counts.tobytes() + cb.sym_order.astype("<u2").tobytes()
+    with span("header"):
+        lens_in_order = cb.lengths[cb.sym_order]
+        counts = np.bincount(lens_in_order, minlength=MAX_CODE_LEN + 1)[1:].astype("<u4")
+        return counts.tobytes() + cb.sym_order.astype("<u2").tobytes()
 
 
 def codebook_from_blob(cb_blob: bytes) -> Codebook:
@@ -106,19 +113,22 @@ def _codebook_from_header(blob: bytes, n_unique: int) -> tuple[Codebook, int]:
 def _build_header(
     version, data, is_odd, last_byte, cb, B, nblocks, embed_codebook=True
 ) -> bytearray:
-    header = bytearray(_HEADER_BYTES)
-    header[0:4] = int(NATIVE_MAGIC).to_bytes(4, "little")
-    header[4] = version
-    # flags: bit0 odd input, bit1 codebook stored outside the container
-    header[5] = (1 if is_odd else 0) | (0 if embed_codebook else 2)
-    header[6] = last_byte
-    header[7] = cb.max_len
-    header[8:16] = len(data).to_bytes(8, "little")
-    header[16:20] = B.to_bytes(4, "little")
-    header[20:24] = nblocks.to_bytes(4, "little")
-    header[24:28] = cb.n_unique.to_bytes(4, "little")
-    header[28:32] = (zlib.crc32(data) & 0xFFFFFFFF).to_bytes(4, "little")
-    return header
+    with span("header"):
+        header = bytearray(_HEADER_BYTES)
+        header[0:4] = int(NATIVE_MAGIC).to_bytes(4, "little")
+        header[4] = version
+        # flags: bit0 odd input, bit1 codebook stored outside the container
+        header[5] = (1 if is_odd else 0) | (0 if embed_codebook else 2)
+        header[6] = last_byte
+        header[7] = cb.max_len
+        header[8:16] = len(data).to_bytes(8, "little")
+        header[16:20] = B.to_bytes(4, "little")
+        header[20:24] = nblocks.to_bytes(4, "little")
+        header[24:28] = cb.n_unique.to_bytes(4, "little")
+        with span("crc32"):
+            crc = zlib.crc32(data) & 0xFFFFFFFF
+        header[28:32] = crc.to_bytes(4, "little")
+        return header
 
 
 def _emit_streams(out: bytearray, streams, nblocks: int) -> bytes:
@@ -127,19 +137,20 @@ def _emit_streams(out: bytearray, streams, nblocks: int) -> bytes:
     2*GROUP_LANES words are w0[lane 0..1023], w1[lane 0..1023]; only the
     first n_real of each half carry data. The parser reinserts the
     zeros."""
-    stripped = []
-    for g, s in enumerate(streams):
-        n_real = max(0, min(GROUP_LANES, nblocks - g * GROUP_LANES))
-        stripped.append(
-            np.concatenate(
-                [s[:n_real], s[GROUP_LANES : GROUP_LANES + n_real], s[2 * GROUP_LANES :]]
+    with span("emit"):
+        stripped = []
+        for g, s in enumerate(streams):
+            n_real = max(0, min(GROUP_LANES, nblocks - g * GROUP_LANES))
+            stripped.append(
+                np.concatenate(
+                    [s[:n_real], s[GROUP_LANES : GROUP_LANES + n_real], s[2 * GROUP_LANES :]]
+                )
             )
-        )
-    out += len(stripped).to_bytes(4, "little")
-    out += np.array([s.size for s in stripped], dtype="<u4").tobytes()
-    for s in stripped:
-        out += s.astype("<u4").tobytes()
-    return bytes(out)
+        out += len(stripped).to_bytes(4, "little")
+        out += np.array([s.size for s in stripped], dtype="<u4").tobytes()
+        for s in stripped:
+            out += s.astype("<u4").tobytes()
+        return bytes(out)
 
 
 def _host_codebook(freqs: np.ndarray, max_code_len: int | None) -> Codebook:
@@ -180,35 +191,38 @@ def compress(
         raise ValueError(f"unknown mode {mode!r}")
     if codebook is None and not embed_codebook:
         raise ValueError("embed_codebook=False requires an explicit codebook")
-    n_pairs = len(data) // 2
-    is_odd = len(data) % 2 == 1
-    last_byte = data[-1] if is_odd else 0
-    # The decoder emits packed 16-bit symbol pairs: blocks hold an even
-    # symbol count.
-    B = block_symbols + (block_symbols & 1)
-    nblocks = (n_pairs + B - 1) // B
-    if (
-        codebook is None
-        and mode == "interleaved"
-        and nblocks > 0
-        and max_code_len is not None
-        and 16 <= max_code_len <= PACKED_MAX_LEN  # >= 16: any alphabet fits
-        and DEVICE_MIN_PAIRS <= n_pairs < (1 << 30)
-    ):
-        out, codebook = _compress_v2_fused(
-            data, n_pairs, is_odd, last_byte, B, nblocks, max_code_len, device
-        )
-    else:
-        out, codebook = _compress_host_codebook(
-            data, is_odd, last_byte, codebook, B, nblocks, max_code_len, device,
-            mode, embed_codebook,
-        )
-    if len(out) >= _HEADER_BYTES + len(data):
-        # Incompressible input: stored mode (flags bit2), header + raw bytes.
-        header = _build_header(1, data, False, 0, codebook, B, 0)
-        header[5] |= 4
-        return bytes(header) + data
-    return out
+    with span("compress"):
+        count("bytes_in", len(data))
+        n_pairs = len(data) // 2
+        is_odd = len(data) % 2 == 1
+        last_byte = data[-1] if is_odd else 0
+        # The decoder emits packed 16-bit symbol pairs: blocks hold an even
+        # symbol count.
+        B = block_symbols + (block_symbols & 1)
+        nblocks = (n_pairs + B - 1) // B
+        if (
+            codebook is None
+            and mode == "interleaved"
+            and nblocks > 0
+            and max_code_len is not None
+            and 16 <= max_code_len <= PACKED_MAX_LEN  # >= 16: any alphabet fits
+            and DEVICE_MIN_PAIRS <= n_pairs < (1 << 30)
+        ):
+            out, codebook = _compress_v2_fused(
+                data, n_pairs, is_odd, last_byte, B, nblocks, max_code_len, device
+            )
+        else:
+            out, codebook = _compress_host_codebook(
+                data, is_odd, last_byte, codebook, B, nblocks, max_code_len, device,
+                mode, embed_codebook,
+            )
+        if len(out) >= _HEADER_BYTES + len(data):
+            # Incompressible input: stored mode (flags bit2), header + raw bytes.
+            header = _build_header(1, data, False, 0, codebook, B, 0)
+            header[5] |= 4
+            out = bytes(header) + data
+        count("bytes_out", len(out))
+        return out
 
 
 def _compress_host_codebook(data, is_odd, last_byte, codebook, B, nblocks,
@@ -216,8 +230,9 @@ def _compress_host_codebook(data, is_odd, last_byte, codebook, B, nblocks,
     """The container with a host-built (or given) codebook; the payload is
     encoded on ``device``. Returns (container bytes, codebook)."""
     if codebook is None:
-        symbols, _, _ = bytes_to_symbols(data)
-        codebook = _host_codebook(histogram_host(symbols), max_code_len)
+        with span("lengths"):
+            symbols, _, _ = bytes_to_symbols(data)
+            codebook = _host_codebook(histogram_host(symbols), max_code_len)
     version = 2 if mode == "interleaved" else 1
     out = _build_header(
         version, data, is_odd, last_byte, codebook, B, nblocks, embed_codebook
@@ -228,13 +243,17 @@ def _compress_host_codebook(data, is_odd, last_byte, codebook, B, nblocks,
         if version == 2:
             out += (0).to_bytes(4, "little")  # ngroups
         return bytes(out), codebook
-    tables = tables_from_codebook(codebook, device)
+    with span("tables"):
+        tables = tables_from_codebook(codebook, device)
     n_pairs = len(data) // 2
-    sym = bytes_to_symbols_device(_upload_bytes(data, n_pairs, nblocks, B, device))
-    codes, lens = gather_table_codes(sym.reshape(-1, B), tables, n_pairs)
+    raw = _upload_bytes(data, n_pairs, nblocks, B, device)
+    with span("encode"):
+        sym = bytes_to_symbols_device(raw)
+        codes, lens = gather_table_codes(sym.reshape(-1, B), tables, n_pairs)
+        if version == 2:
+            streams, counts = encode_streams(codes, lens, n_pairs, tables.min_len, nblocks)
     if version == 1:
         return _emit_slabs(out, codes[:nblocks], lens[:nblocks]), codebook
-    streams, counts = encode_streams(codes, lens, n_pairs, tables.min_len, nblocks)
     return _emit_streams(out, _streams_to_host(streams, counts), nblocks), codebook
 
 
@@ -244,15 +263,20 @@ def _emit_slabs(out: bytearray, codes: torch.Tensor, lens: torch.Tensor) -> byte
     The slab width is the bucketed word count of the largest block, read
     to the host with the bit counts; only the blocks' own words cross the
     link."""
-    block_bits = lens.sum(dim=1, dtype=torch.int64)
-    bits_host = block_bits.cpu().numpy()
+    with span("download"):
+        block_bits = lens.sum(dim=1, dtype=torch.int64)
+        bits_host = copied(block_bits, block_bits.cpu()).numpy()
     W = bucket_words(int((bits_host.max(initial=1) + 31) // 32))
-    slab = pack_blocks(codes, lens, W)
-    n_words = (block_bits + 31) // 32
-    keep = torch.arange(W, device=slab.device)[None, :] < n_words[:, None]
-    out += bits_host.astype("<u4").tobytes()
-    out += to_numpy_u32(slab[keep]).astype(">u4").tobytes()
-    return bytes(out)
+    with span("encode"):
+        slab = pack_blocks(codes, lens, W)
+        n_words = (block_bits + 31) // 32
+        keep = torch.arange(W, device=slab.device)[None, :] < n_words[:, None]
+    with span("download"):
+        words = to_numpy_u32(slab[keep])
+    with span("emit"):
+        out += bits_host.astype("<u4").tobytes()
+        out += words.astype(">u4").tobytes()
+        return bytes(out)
 
 
 def _compress_v2_fused(data, n_pairs, is_odd, last_byte, B, nblocks,
@@ -261,8 +285,11 @@ def _compress_v2_fused(data, n_pairs, is_odd, last_byte, B, nblocks,
     host receives the lengths (for the codebook header) and the trimmed
     streams. Returns (container bytes, codebook)."""
     raw = _upload_bytes(data, n_pairs, nblocks, B, device)
-    r = encode_device_bytes(raw, n_pairs, B, max_code_len)
-    cb = Codebook.from_lengths(r["lengths"].cpu().numpy().astype(np.uint8))
+    with span("encode"):
+        r = encode_device_bytes(raw, n_pairs, B, max_code_len)
+    with span("lengths"):
+        lengths = r["lengths"]
+        cb = Codebook.from_lengths(copied(lengths, lengths.cpu()).numpy().astype(np.uint8))
     out = _build_header(2, data, is_odd, last_byte, cb, B, nblocks)
     out += _codebook_to_header(cb)
     return _emit_streams(out, _streams_to_host(r["streams"], r["counts"]), nblocks), cb
@@ -273,18 +300,21 @@ def _upload_bytes(data: bytes, n_pairs: int, nblocks: int, B: int,
     """The input's byte pairs (the odd tail excluded), zero-padded to
     whole groups of blocks, as a (n_lanes * B * 2,) uint8 tensor on
     ``device``."""
-    n_lanes = -(-nblocks // GROUP_LANES) * GROUP_LANES
-    padded = np.zeros(n_lanes * B * 2, dtype=np.uint8)
-    padded[: 2 * n_pairs] = np.frombuffer(data, np.uint8, count=2 * n_pairs)
-    return torch.from_numpy(padded).to(device)
+    with span("upload"):
+        n_lanes = -(-nblocks // GROUP_LANES) * GROUP_LANES
+        padded = np.zeros(n_lanes * B * 2, dtype=np.uint8)
+        padded[: 2 * n_pairs] = np.frombuffer(data, np.uint8, count=2 * n_pairs)
+        host = torch.from_numpy(padded)
+        return copied(host, host.to(device))
 
 
 def _streams_to_host(streams: torch.Tensor, counts: torch.Tensor) -> list[np.ndarray]:
     """Per-group u32 streams on the host, each trimmed to its word count;
     only the longest group's words cross the link."""
-    counts = counts.cpu().numpy()
-    host = to_numpy_u32(streams[:, : int(counts.max())])
-    return [host[g, : counts[g]] for g in range(host.shape[0])]
+    with span("download"):
+        counts = copied(counts, counts.cpu()).numpy()
+        host = to_numpy_u32(streams[:, : int(counts.max())])
+        return [host[g, : counts[g]] for g in range(host.shape[0])]
 
 
 # --------------------------------------------------------------------------
@@ -401,21 +431,29 @@ def decompress(
 ) -> bytes:
     """Original bytes of an HTPU container, payload decoded on ``device``.
     ``codebook`` is needed, and used, only when the header stores none."""
-    c = ParsedContainer(blob, codebook=codebook)
-    if c.stored:
-        data = bytes(c.payload[: c.original_size])
-        if len(data) != c.original_size:
-            raise ValueError("truncated stored container")
-    else:
-        n_pairs = (c.original_size - (1 if c.is_odd else 0)) // 2
-        symbols = np.zeros(0, np.uint16)
-        if n_pairs:
-            decode = _decode_v1 if c.version == 1 else _decode_v2
-            symbols = decode(c, device)[:n_pairs]
-        data = symbols_to_bytes(symbols, c.is_odd, c.last_byte)
-    if verify_crc and (zlib.crc32(data) & 0xFFFFFFFF) != c.crc32:
-        raise ValueError("CRC mismatch: corrupt container or decode bug")
-    return data
+    with span("decompress"):
+        count("bytes_in", len(blob))
+        with span("parse"):
+            c = ParsedContainer(blob, codebook=codebook)
+        if c.stored:
+            data = bytes(c.payload[: c.original_size])
+            if len(data) != c.original_size:
+                raise ValueError("truncated stored container")
+        else:
+            n_pairs = (c.original_size - (1 if c.is_odd else 0)) // 2
+            symbols = np.zeros(0, np.uint16)
+            if n_pairs:
+                decode = _decode_v1 if c.version == 1 else _decode_v2
+                symbols = decode(c, device)[:n_pairs]
+            with span("bytes"):
+                data = symbols_to_bytes(symbols, c.is_odd, c.last_byte)
+        if verify_crc:
+            with span("crc32"):
+                crc = zlib.crc32(data) & 0xFFFFFFFF
+            if crc != c.crc32:
+                raise ValueError("CRC mismatch: corrupt container or decode bug")
+        count("bytes_out", len(data))
+        return data
 
 
 def _decode_v1(c: ParsedContainer, device: torch.device) -> np.ndarray:
@@ -425,20 +463,30 @@ def _decode_v1(c: ParsedContainer, device: torch.device) -> np.ndarray:
     B = c.block_symbols
     if B % 2:
         raise ValueError("corrupt container: odd block_symbols")
-    tables = tables_from_codebook(c.codebook, device)
-    slab = from_numpy_u32(c.slab(), device)
-    out = decode_blocks(slab, tables.lj_limit, tables.base, tables.sym_order, B, tables.max_len)
-    pairs = out.reshape(-1, 2)
-    return to_numpy_u32(pairs[:, 0] | (pairs[:, 1] << 16)).view("<u2")
+    with span("tables"):
+        tables = tables_from_codebook(c.codebook, device)
+    with span("pad"):
+        slab = c.slab()
+    with span("upload"):
+        slab = from_numpy_u32(slab, device)
+    with span("decode"):
+        out = decode_blocks(
+            slab, tables.lj_limit, tables.base, tables.sym_order, B, tables.max_len
+        )
+    with span("postpack"):
+        pairs = out.reshape(-1, 2)
+        return to_numpy_u32(pairs[:, 0] | (pairs[:, 1] << 16)).view("<u2")
 
 
 def _decode_v2(c: ParsedContainer, device: torch.device) -> np.ndarray:
     """Decoded symbols of a v2 container, block-major, as u16."""
     streams, n_real, tables, B = v2_device_inputs(c, device)
-    out = decode_groups(streams, n_real, tables, B, True)
-    # (g, step pair, lane) -> (g, lane, step pair): block-major u16 pairs.
-    words = out.reshape(c.ngroups, B // 2, GROUP_LANES).transpose(1, 2).contiguous()
-    return to_numpy_u32(words).reshape(-1).view("<u2")
+    with span("decode"):
+        out = decode_groups(streams, n_real, tables, B, True)
+    with span("postpack"):
+        # (g, step pair, lane) -> (g, lane, step pair): block-major u16 pairs.
+        words = out.reshape(c.ngroups, B // 2, GROUP_LANES).transpose(1, 2).contiguous()
+        return to_numpy_u32(words).reshape(-1).view("<u2")
 
 
 def v2_device_inputs(c: ParsedContainer, device: torch.device):
@@ -452,9 +500,13 @@ def v2_device_inputs(c: ParsedContainer, device: torch.device):
     B = c.block_symbols
     if B % 2:
         raise ValueError("corrupt container: odd block_symbols")
-    tables = tables_from_codebook(cb, device)
-    stacked, _ = il.pad_streams(list(c.streams))
-    streams = from_numpy_u32(stacked.reshape(c.ngroups, -1), device)
-    n_real = np.clip(c.num_blocks - GROUP_LANES * np.arange(c.ngroups), 0, GROUP_LANES)
-    n_real = torch.from_numpy(n_real.astype(np.int32)).to(device)
+    with span("tables"):
+        tables = tables_from_codebook(cb, device)
+    with span("pad"):
+        stacked, _ = il.pad_streams(list(c.streams))
+    with span("upload"):
+        streams = from_numpy_u32(stacked.reshape(c.ngroups, -1), device)
+        n_real = np.clip(c.num_blocks - GROUP_LANES * np.arange(c.ngroups), 0, GROUP_LANES)
+        n_real = torch.from_numpy(n_real.astype(np.int32))
+        n_real = copied(n_real, n_real.to(device))
     return streams, n_real, tables, B

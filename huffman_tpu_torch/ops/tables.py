@@ -16,6 +16,7 @@ import torch
 from ..codebook import Codebook
 from ..constants import MAX_CODE_LEN, MAX_SYMBOLS
 from ..u32 import from_numpy_u32
+from ..utils.profiling import copied
 
 # Codes of up to this many bits share a word with their 6-bit length in
 # the dense encode table (len << 26 | code).
@@ -53,14 +54,16 @@ def tables_from_numpy(
             (lengths.astype(np.uint32) << 26) | np.asarray(codes, np.uint32),
             device,
         )
-    so = np.ascontiguousarray(np.asarray(sym_order, dtype=np.uint16)).view(np.int16)
+    so = torch.from_numpy(
+        np.ascontiguousarray(np.asarray(sym_order, dtype=np.uint16)).view(np.int16).copy())
+    lens = torch.from_numpy(lengths.astype(np.int32))
     return Tables(
         lj_limit=from_numpy_u32(lj_limit, device),
         base=from_numpy_u32(np.asarray(base, np.int64) & 0xFFFFFFFF, device),
-        sym_order=torch.from_numpy(so.copy()).to(device),
+        sym_order=copied(so, so.to(device)),
         enc_packed=enc,
         enc_codes=from_numpy_u32(codes, device),
-        enc_lens=torch.from_numpy(lengths.astype(np.int32)).to(device),
+        enc_lens=copied(lens, lens.to(device)),
         min_len=min(int(present.min()) if present.size else 1, max_len),
         max_len=max_len,
     )

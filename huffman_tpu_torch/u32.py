@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .utils.profiling import copied
+
 MASK32 = 0xFFFFFFFF
 
 
@@ -44,9 +46,11 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
 def from_numpy_u32(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """numpy u32 values -> int32 bit-pattern tensor on ``device``."""
     arr = np.ascontiguousarray(np.asarray(a, dtype=np.uint32)).view(np.int32)
-    return torch.from_numpy(arr.copy()).to(device)
+    host = torch.from_numpy(arr.copy())
+    return copied(host, host.to(device))
 
 
 def to_numpy_u32(bits: torch.Tensor) -> np.ndarray:
     """int32 bit-pattern tensor -> numpy u32 array on the host."""
-    return bits.detach().cpu().contiguous().numpy().view(np.uint32)
+    bits = bits.detach()
+    return copied(bits, bits.cpu()).contiguous().numpy().view(np.uint32)

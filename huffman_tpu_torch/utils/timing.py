@@ -1,9 +1,8 @@
-"""Per-stage timing: counterpart of huffman_tpu/utils/timing.py.
-
-``StageTimer`` collects named wall-clock spans and blocks on the card at
-the end of a span that produced CUDA tensors, so a span holds the device
-work it launched. ``time_fn`` times single calls (CUDA events when the
-call's tensors lie on the card, the host clock otherwise); ``wall_times``
+"""Timing: counterpart of huffman_tpu/utils/timing.py, without its
+``StageTimer`` (the codec marks its stages with ``utils/profiling.span``,
+which does not wait for the card). ``time_fn`` times single calls (CUDA
+events when the call's tensors lie on the card, the host clock
+otherwise); ``wall_times``
 times whole calls on the host clock, synchronising the card before and
 after each; ``amortized_time_fn`` times K calls enqueued back to back
 between two CUDA events.
@@ -11,10 +10,8 @@ between two CUDA events.
 
 from __future__ import annotations
 
-import contextlib
 import statistics
 import time
-from dataclasses import dataclass, field
 
 import torch
 
@@ -34,37 +31,6 @@ def _tensors(x):
 def holds_cuda(*xs) -> bool:
     """Whether any tensor in ``xs`` lies on a CUDA device."""
     return any(t.is_cuda for x in xs for t in _tensors(x))
-
-
-@dataclass
-class StageTimer:
-    """Collects named wall-clock spans. ``stage(name, block=x)`` calls
-    ``torch.cuda.synchronize()`` at the end of the span when ``x`` then
-    holds CUDA tensors; ``x`` may be a list or dict the span fills in."""
-
-    spans: dict[str, float] = field(default_factory=dict)
-    counts: dict[str, int] = field(default_factory=dict)
-
-    @contextlib.contextmanager
-    def stage(self, name: str, block=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if block is not None and holds_cuda(block):
-                torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            self.spans[name] = self.spans.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def report(self, total_bytes: int | None = None) -> str:
-        lines = []
-        for name, dt in self.spans.items():
-            line = f"{name}: {dt * 1000:.2f} ms"
-            if total_bytes:
-                line += f" ({total_bytes / dt / 1e9:.2f} GB/s)"
-            lines.append(line)
-        return "\n".join(lines)
 
 
 def time_fn(fn, *args, iters: int = 5, warmup: int = 2) -> float:

@@ -37,20 +37,9 @@ def _counted(fn):
     return wrapper, calls
 
 
-def test_stage_timer_counts_and_reports():
-    t = timing.StageTimer()
-    out = {}
-    for _ in range(3):
-        with t.stage("sum", block=out):
-            out["x"] = torch.arange(1000).sum()
-    with t.stage("other"):
-        pass
-    assert t.counts == {"sum": 3, "other": 1}
-    assert all(v >= 0 for v in t.spans.values()) and t.spans["sum"] > 0
-    lines = t.report(total_bytes=1 << 20).splitlines()
-    assert lines[0].startswith("sum: ") and "GB/s" in lines[0]
-    assert lines[1].startswith("other: ")
-    assert not timing.holds_cuda(out, [torch.zeros(1)], {"a": (torch.ones(2),)})
+def test_holds_cuda_finds_no_card_tensor_on_the_host():
+    assert not timing.holds_cuda({"x": torch.arange(3)}, [torch.zeros(1)], {"a": (torch.ones(2),)})
+    assert not timing.holds_cuda(None, "text", 3)
 
 
 @pytest.mark.parametrize("iters,warmup", [(1, 0), (5, 2)])
