@@ -22,7 +22,9 @@ compress routes chosen as the JAX package chooses them on a device:
 Decompress of v2 runs the group decode (K1), rank -> symbol pairs (K2) for
 alphabets past the in-kernel tier, and the block-major reorder of
 ``_postpack_v2``; v1 runs ``ops/decode.py``'s ``decode_blocks`` on the
-slabs.
+slabs. The v2 streams go up from a host buffer that each thread keeps
+from call to call, page-locked for a CUDA device, which
+``ParsedContainer.padded_streams`` fills in one pass from the payload.
 
 Each call is a root span of ``utils/profiling.py`` (``compress``,
 ``decompress``) with its stages as spans inside it, and counts its input
@@ -36,6 +38,8 @@ host's, and the streams follow the same decode protocol.
 
 from __future__ import annotations
 
+import functools
+import threading
 import zlib
 
 import numpy as np
@@ -322,9 +326,11 @@ def _streams_to_host(streams: torch.Tensor, counts: torch.Tensor) -> list[np.nda
 # --------------------------------------------------------------------------
 
 class ParsedContainer:
-    """Parsed HTPU header and payload (host side): v2 payloads split into
-    per-group streams, v1 payloads as the per-block bit table and the
-    packed words (``slab()`` re-slabs them), stored payloads as they are.
+    """Parsed HTPU header and payload (host side): v2 payloads as a view of
+    the blob's words with each group's start (``streams`` splits them into
+    per-group streams on first use, ``padded_streams`` writes the decoder's
+    padded rows), v1 payloads as the per-block bit table and the packed
+    words (``slab()`` re-slabs them), stored payloads as they are.
     ``codebook`` is used when the header stores none (flags bit 1)."""
 
     def __init__(self, blob: bytes, codebook: Codebook | None = None):
@@ -390,22 +396,64 @@ class ParsedContainer:
         if self.ngroups and self.group_words.max() > (len(blob) + 3) // 4:
             raise ValueError("corrupt container: group words exceed payload")
         total = int(self.group_words.sum())
-        raw = blob[off : off + 4 * total]
-        if len(raw) != 4 * total:
+        if max(len(blob) - off, 0) < 4 * total:
             raise ValueError("truncated container payload")
-        words = np.frombuffer(raw, dtype="<u4")
-        parts = np.split(words, np.cumsum(self.group_words)[:-1])
-        # Reinsert the pad-lane preload zeros stripped by the writer.
-        self.streams = []
+        self.n_real = np.clip(
+            self.num_blocks - GROUP_LANES * np.arange(self.ngroups), 0, GROUP_LANES
+        )
+        # Each real lane's two preload words lead its group's words.
+        if (self.group_words < 2 * self.n_real).any():
+            raise ValueError("corrupt container: group words below its preload words")
+        # The payload stays in the blob: ``streams`` and ``padded_streams``
+        # read each group's words from this view.
+        self.words = np.frombuffer(memoryview(blob)[off : off + 4 * total], dtype="<u4")
+        self.group_starts = np.concatenate(([0], np.cumsum(self.group_words)))
+
+    @functools.cached_property
+    def streams(self) -> list[np.ndarray]:
+        """v2: each group's stream with the pad lanes' preload zeros, which
+        the writer strips, put back: (2 * GROUP_LANES + the group's words
+        after its preloads,) u32 each."""
+        parts = np.split(self.words, self.group_starts[1:-1])
+        out = []
         for g, s in enumerate(parts):
             n_real = max(0, min(GROUP_LANES, self.num_blocks - g * GROUP_LANES))
             w0 = np.zeros(GROUP_LANES, dtype=np.uint32)
             w1 = np.zeros(GROUP_LANES, dtype=np.uint32)
             w0[:n_real] = s[:n_real]
             w1[:n_real] = s[n_real : 2 * n_real]
-            self.streams.append(
-                np.concatenate([w0, w1, s[2 * n_real :].astype(np.uint32)])
-            )
+            out.append(np.concatenate([w0, w1, s[2 * n_real :].astype(np.uint32)]))
+        return out
+
+    @property
+    def row_words(self) -> int:
+        """v2: the words of each row of ``padded_streams``, as
+        ``il.pad_streams(self.streams)`` pads them."""
+        lengths = self.group_words + 2 * (GROUP_LANES - self.n_real)
+        return 128 * il.padded_rows(int(lengths.max(initial=0)))
+
+    def padded_streams(self, out: np.ndarray | None = None) -> np.ndarray:
+        """v2: ``il.pad_streams(self.streams)[0]`` as (ngroups, row_words)
+        u32, written in one pass from the payload words into ``out`` (a
+        contiguous u32 array of that many words, whatever it holds; a new
+        one by default). Per group: the real lanes' first preload words
+        to lanes [0, n_real), their second ones to [L, L + n_real), the
+        rest from word 2L on, zeros elsewhere (L = GROUP_LANES)."""
+        L, w = GROUP_LANES, self.row_words
+        if out is None:
+            out = np.empty((self.ngroups, w), dtype=np.uint32)
+        rows = out.reshape(self.ngroups, w)
+        starts = self.group_starts.tolist()
+        for g, n in enumerate(self.n_real.tolist()):
+            s, row = self.words[starts[g] : starts[g + 1]], rows[g]
+            end = 2 * L + s.size - 2 * n
+            row[:n] = s[:n]
+            row[n:L] = 0
+            row[L : L + n] = s[n : 2 * n]
+            row[L + n : 2 * L] = 0
+            row[2 * L : end] = s[2 * n :]
+            row[end:] = 0
+        return rows
 
     def slab(self) -> np.ndarray:
         """v1: the packed payload re-slabbed into (num_blocks, W) u32 rows,
@@ -503,10 +551,42 @@ def v2_device_inputs(c: ParsedContainer, device: torch.device):
     with span("tables"):
         tables = tables_from_codebook(cb, device)
     with span("pad"):
-        stacked, _ = il.pad_streams(list(c.streams))
+        shape = (c.ngroups, c.row_words)
+        host = _upload_buffer(shape[0] * shape[1], torch.device(device).type == "cuda")
+        c.padded_streams(host.numpy().view(np.uint32))
     with span("upload"):
-        streams = from_numpy_u32(stacked.reshape(c.ngroups, -1), device)
-        n_real = np.clip(c.num_blocks - GROUP_LANES * np.arange(c.ngroups), 0, GROUP_LANES)
-        n_real = torch.from_numpy(n_real.astype(np.int32))
+        host = host.view(shape)
+        # A copy even on the CPU, where ``to`` would hand back the buffer
+        # that the thread's next call overwrites.
+        streams = copied(host, host.to(device, copy=True))
+        n_real = torch.from_numpy(c.n_real.astype(np.int32))
         n_real = copied(n_real, n_real.to(device))
     return streams, n_real, tables, B
+
+
+class _UploadBuffers(threading.local):
+    """The calling thread's host buffers for the stream upload, by whether
+    they are pinned: HTPS decodes in a pool of threads at once."""
+
+    def __init__(self):
+        self.by_pinned: dict[bool, torch.Tensor] = {}
+
+
+_upload_buffers = _UploadBuffers()
+
+
+def _upload_buffer(n_words: int, pinned: bool) -> torch.Tensor:
+    """The first ``n_words`` int32 of the calling thread's upload buffer,
+    page-locked where ``pinned`` (for a CUDA device, which then copies from
+    it directly), allocated anew only where the thread has none yet or a
+    shorter one. Counts ``upload_buffer_hits`` when it serves the buffer
+    as it stood, ``upload_buffer_misses`` when it allocates."""
+    buffers = _upload_buffers.by_pinned
+    buf = buffers.get(pinned)
+    if buf is not None and buf.numel() >= n_words:
+        count("upload_buffer_hits", 1)
+    else:
+        buffers.pop(pinned, None)  # free the short one first
+        buf = buffers[pinned] = torch.empty(n_words, dtype=torch.int32, pin_memory=pinned)
+        count("upload_buffer_misses", 1)
+    return buf[:n_words]

@@ -17,14 +17,19 @@ import numpy as np
 from ..constants import WINDOW_ROWS
 
 
-def pad_streams(streams: list[np.ndarray], rows_bucket: int = 64) -> tuple[np.ndarray, np.ndarray]:
-    """Pad per-group streams to a common row count (multiple of
-    ``rows_bucket`` rows of 128 words, plus the decoder's window slack).
-    Returns (stacked (ngroups*rows, 128) uint32, per-group word counts)."""
-    counts = np.array([s.size for s in streams], dtype=np.int64)
-    max_words = int(counts.max(initial=0))
+def padded_rows(max_words: int, rows_bucket: int = 64) -> int:
+    """Rows of 128 words that hold a group's stream of ``max_words`` words
+    plus the decoder's window slack, rounded up to ``rows_bucket`` rows."""
     rows = (max_words + 127) // 128 + WINDOW_ROWS
-    rows = (rows + rows_bucket - 1) // rows_bucket * rows_bucket
+    return (rows + rows_bucket - 1) // rows_bucket * rows_bucket
+
+
+def pad_streams(streams: list[np.ndarray], rows_bucket: int = 64) -> tuple[np.ndarray, np.ndarray]:
+    """Pad per-group streams to a common row count (``padded_rows`` of the
+    longest). Returns (stacked (ngroups*rows, 128) uint32, per-group word
+    counts)."""
+    counts = np.array([s.size for s in streams], dtype=np.int64)
+    rows = padded_rows(int(counts.max(initial=0)), rows_bucket)
     out = np.zeros((len(streams), rows * 128), dtype=np.uint32)
     for g, s in enumerate(streams):
         out[g, : s.size] = s

@@ -676,6 +676,34 @@ def test_htps_and_htpx_on_the_card_equal_the_host_path(dev):
         assert huffman_tpu_torch.decompress(blob, dev) == data
 
 
+def test_htps_pool_threads_upload_from_their_own_pinned_buffers(dev, monkeypatch):
+    """HTPS decode with two records in flight over records of two sizes
+    (4 MiB chunks and a shorter last one): each pool thread fills and
+    uploads from a pinned buffer of its own."""
+    import threading
+
+    from huffman_tpu_torch.container import streaming
+    from huffman_tpu_torch.corpus import silesia_like as port_silesia_like
+
+    data = port_silesia_like(10 << 20, seed=5).tobytes() + b"\x02"
+    blob = streaming.compress_bytes(data, chunk_bytes=4 << 20, device=dev)
+    served: list[tuple[int, int, bool]] = []
+    upload_buffer = bf._upload_buffer
+
+    def recording(n_words, pinned):
+        buf = upload_buffer(n_words, pinned)
+        served.append((threading.get_ident(), buf.data_ptr(), buf.is_pinned()))
+        return buf
+
+    monkeypatch.setattr(bf, "_upload_buffer", recording)
+    for _ in range(2):
+        served.clear()
+        assert streaming.decompress_bytes(blob, device=dev, pipeline=2) == data
+        assert len(served) == 3 and all(pinned for _, _, pinned in served)
+        last = {thread: ptr for thread, ptr, _ in served}  # each thread's buffer at the end
+        assert 1 <= len(last) <= 2 and len(set(last.values())) == len(last)
+
+
 def test_cli_on_the_card_equals_the_cpu(dev, tmp_path, monkeypatch, capsys):
     from huffman_tpu_torch import cli
 

@@ -144,6 +144,56 @@ def test_counters_after_n_calls(direction, n_calls):
     assert all(c.get(k, 0) == 0 for k in PAGEABLE)  # nothing crosses to a card
 
 
+UPLOAD_BUFFER = ("upload_buffer_hits", "upload_buffer_misses")
+
+
+def _upload_buffer_counts(blobs_by_thread: list[list[bytes]]) -> tuple[int, int]:
+    """The decompress root's (hits, misses) added while one new thread
+    each (none with an upload buffer yet) decompresses its blobs in turn,
+    the threads at once; every output is checked against a decompress
+    made before."""
+    want = {b: ht.decompress(b, device="cpu") for blobs in blobs_by_thread for b in blobs}
+    start = threading.Barrier(len(blobs_by_thread))
+    errors: list[BaseException] = []
+
+    def work(blobs):
+        try:
+            start.wait()
+            for b in blobs:
+                assert ht.decompress(b, device="cpu") == want[b]
+        except BaseException as e:  # reported by the assertion below
+            errors.append(e)
+
+    before = profiling.counters()
+    threads = [threading.Thread(target=work, args=(b,)) for b in blobs_by_thread]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors and not any(t.is_alive() for t in threads)
+    c = _delta(before, profiling.counters(), "decompress")
+    return tuple(c.get(k, 0) for k in UPLOAD_BUFFER)
+
+
+@pytest.mark.parametrize("n_calls", [1, 3])
+def test_upload_buffer_counters_after_n_calls(n_calls):
+    blob = ht.compress(_data(3000), device="cpu")
+    assert _upload_buffer_counts([[blob] * n_calls]) == (n_calls - 1, 1)
+
+
+def test_upload_buffer_misses_when_a_larger_container_comes():
+    small, large = (ht.compress(_data(n), device="cpu") for n in (3000, 60000))
+    size = [bf.ParsedContainer(b) for b in (small, large)]
+    assert size[0].ngroups * size[0].row_words < size[1].ngroups * size[1].row_words
+    # The large one grows the buffer; the small one then fits in it.
+    assert _upload_buffer_counts([[small, large, small, large]]) == (2, 2)
+
+
+def test_one_upload_buffer_miss_per_thread():
+    blob = ht.compress(_data(3000), device="cpu")
+    assert _upload_buffer_counts([[blob] * 3 for _ in range(4)]) == (8, 4)
+
+
 def _tensor(where: str, nbytes: int = 4096):
     """A stand-in with what the rule reads: ``is_cuda``, ``is_pinned()``,
     ``nbytes``; ``where`` is "cuda", "pinned" or "host"."""
@@ -323,5 +373,9 @@ def test_pageable_bytes_of_a_decompress_on_the_card(dev):
     before = profiling.counters()
     assert ht.decompress(blob, device=dev) == data
     got = _delta(before, profiling.counters(), "decompress")
-    assert got["h2d_pageable_bytes"] == streams.nbytes + 4 * c.ngroups + tables
+    # The streams go up from the thread's pinned buffer: only n_real and
+    # the tables cross from pageable memory.
+    assert got["h2d_pageable_bytes"] == 4 * c.ngroups + tables
+    assert sum(got.get(k, 0) for k in UPLOAD_BUFFER) == 1
+    assert streams.nbytes == 4 * c.ngroups * c.row_words
     assert got["d2h_pageable_bytes"] == c.ngroups * GROUP_LANES * c.block_symbols * 2
