@@ -19,12 +19,13 @@ compress routes chosen as the JAX package chooses them on a device:
   ``ops/encode.py`` for codes deeper than 26 bits) and packs lanes (K4),
   into interleaved streams (v2) or per-block slabs (v1, ``pack_blocks``).
 
-Decompress of v2 runs the group decode (K1), rank -> symbol pairs (K2) for
-alphabets past the in-kernel tier, and the block-major reorder of
-``_postpack_v2``; v1 runs ``ops/decode.py``'s ``decode_blocks`` on the
-slabs. The v2 streams go up from a host buffer that each thread keeps
-from call to call, page-locked for a CUDA device, which
-``ParsedContainer.padded_streams`` fills in one pass from the payload.
+Decompress of v2 runs the group decode (K1, translating in-kernel) and
+the block-major reorder of its output words; v1 runs ``ops/decode.py``'s
+``decode_blocks`` on the slabs. Each thread keeps two host buffers from
+call to call, page-locked for a CUDA device: the v2 streams go up from
+the upload buffer, which ``ParsedContainer.padded_streams`` fills in one
+pass from the payload, and the decoded words of either version come down
+into the download buffer, out of which one copy makes the returned bytes.
 
 Each call is a root span of ``utils/profiling.py`` (``compress``,
 ``decompress``) with its stages as spans inside it, and counts its input
@@ -489,12 +490,16 @@ def decompress(
                 raise ValueError("truncated stored container")
         else:
             n_pairs = (c.original_size - (1 if c.is_odd else 0)) // 2
-            symbols = np.zeros(0, np.uint16)
-            if n_pairs:
+            if not n_pairs:  # at most the odd byte
+                data = symbols_to_bytes(np.zeros(0, np.uint16), c.is_odd, c.last_byte)
+            else:
                 decode = _decode_v1 if c.version == 1 else _decode_v2
-                symbols = decode(c, device)[:n_pairs]
-            with span("bytes"):
-                data = symbols_to_bytes(symbols, c.is_odd, c.last_byte)
+                out = decode(c, device)
+                with span("bytes"):
+                    # Past the pairs lie the pad blocks' symbols, never returned.
+                    if c.is_odd:
+                        out[2 * n_pairs] = c.last_byte
+                    data = out[: c.original_size].tobytes()
         if verify_crc:
             with span("crc32"):
                 crc = zlib.crc32(data) & 0xFFFFFFFF
@@ -505,7 +510,9 @@ def decompress(
 
 
 def _decode_v1(c: ParsedContainer, device: torch.device) -> np.ndarray:
-    """Decoded symbols of a v1 container, block-major, as u16."""
+    """Decoded symbols of a v1 container, block-major, as the u16 pairs'
+    little-endian bytes (``_download``'s view of the calling thread's
+    download buffer, valid until that thread's next decode)."""
     if c.codebook.n_unique == 0:
         raise ValueError("corrupt container: symbols but an empty codebook")
     B = c.block_symbols
@@ -523,18 +530,32 @@ def _decode_v1(c: ParsedContainer, device: torch.device) -> np.ndarray:
         )
     with span("postpack"):
         pairs = out.reshape(-1, 2)
-        return to_numpy_u32(pairs[:, 0] | (pairs[:, 1] << 16)).view("<u2")
+        return _download(pairs[:, 0] | (pairs[:, 1] << 16), c.original_size)
 
 
 def _decode_v2(c: ParsedContainer, device: torch.device) -> np.ndarray:
-    """Decoded symbols of a v2 container, block-major, as u16."""
+    """Decoded symbols of a v2 container, block-major, as the u16 pairs'
+    little-endian bytes (``_download``'s view of the calling thread's
+    download buffer, valid until that thread's next decode)."""
     streams, n_real, tables, B = v2_device_inputs(c, device)
     with span("decode"):
         out = decode_groups(streams, n_real, tables, B, True)
     with span("postpack"):
         # (g, step pair, lane) -> (g, lane, step pair): block-major u16 pairs.
         words = out.reshape(c.ngroups, B // 2, GROUP_LANES).transpose(1, 2).contiguous()
-        return to_numpy_u32(words).reshape(-1).view("<u2")
+        return _download(words, c.original_size)
+
+
+def _download(words: torch.Tensor, n_bytes: int) -> np.ndarray:
+    """The int32 ``words`` copied, in one blocking copy, to the start of
+    the calling thread's download buffer (page-locked for a CUDA tensor,
+    so the card writes it directly), whose first max(``words.nbytes``,
+    ``n_bytes``) bytes are returned as a u8 view: room for the output's
+    odd last byte too, which may lie past the words."""
+    n = words.numel()
+    buf = _host_buffer("download", max(4 * n, n_bytes), words.is_cuda)
+    copied(words, buf[: 4 * n].view(torch.int32).copy_(words.reshape(n)))
+    return buf.numpy()
 
 
 def v2_device_inputs(c: ParsedContainer, device: torch.device):
@@ -552,7 +573,8 @@ def v2_device_inputs(c: ParsedContainer, device: torch.device):
         tables = tables_from_codebook(cb, device)
     with span("pad"):
         shape = (c.ngroups, c.row_words)
-        host = _upload_buffer(shape[0] * shape[1], torch.device(device).type == "cuda")
+        pinned = torch.device(device).type == "cuda"
+        host = _host_buffer("upload", 4 * shape[0] * shape[1], pinned).view(torch.int32)
         c.padded_streams(host.numpy().view(np.uint32))
     with span("upload"):
         host = host.view(shape)
@@ -564,29 +586,33 @@ def v2_device_inputs(c: ParsedContainer, device: torch.device):
     return streams, n_real, tables, B
 
 
-class _UploadBuffers(threading.local):
-    """The calling thread's host buffers for the stream upload, by whether
-    they are pinned: HTPS decodes in a pool of threads at once."""
+class _HostBuffers(threading.local):
+    """The calling thread's host buffers, by purpose (``upload``,
+    ``download``) and by whether they are pinned: HTPS decodes in a pool
+    of threads at once. Each purpose has a buffer of its own, so that a
+    download never writes over streams whose upload may still be reading
+    them."""
 
     def __init__(self):
-        self.by_pinned: dict[bool, torch.Tensor] = {}
+        self.by_key: dict[tuple[str, bool], torch.Tensor] = {}
 
 
-_upload_buffers = _UploadBuffers()
+_host_buffers = _HostBuffers()
 
 
-def _upload_buffer(n_words: int, pinned: bool) -> torch.Tensor:
-    """The first ``n_words`` int32 of the calling thread's upload buffer,
-    page-locked where ``pinned`` (for a CUDA device, which then copies from
-    it directly), allocated anew only where the thread has none yet or a
-    shorter one. Counts ``upload_buffer_hits`` when it serves the buffer
-    as it stood, ``upload_buffer_misses`` when it allocates."""
-    buffers = _upload_buffers.by_pinned
-    buf = buffers.get(pinned)
-    if buf is not None and buf.numel() >= n_words:
-        count("upload_buffer_hits", 1)
+def _host_buffer(purpose: str, n_bytes: int, pinned: bool) -> torch.Tensor:
+    """The first ``n_bytes`` (uint8) of the calling thread's buffer for
+    ``purpose``, page-locked where ``pinned`` (for a CUDA device, which then
+    copies to or from it directly), allocated anew only where the thread
+    has none yet or a shorter one. Counts ``<purpose>_buffer_hits`` when it
+    serves the buffer as it stood, ``<purpose>_buffer_misses`` when it
+    allocates."""
+    buffers, key = _host_buffers.by_key, (purpose, pinned)
+    buf = buffers.get(key)
+    if buf is not None and buf.numel() >= n_bytes:
+        count(f"{purpose}_buffer_hits", 1)
     else:
-        buffers.pop(pinned, None)  # free the short one first
-        buf = buffers[pinned] = torch.empty(n_words, dtype=torch.int32, pin_memory=pinned)
-        count("upload_buffer_misses", 1)
-    return buf[:n_words]
+        buffers.pop(key, None)  # free the short one first
+        buf = buffers[key] = torch.empty(n_bytes, dtype=torch.uint8, pin_memory=pinned)
+        count(f"{purpose}_buffer_misses", 1)
+    return buf[:n_bytes]

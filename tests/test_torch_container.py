@@ -232,9 +232,78 @@ def test_upload_buffer_reuse_leaves_no_stale_words():
             want = il.pad_streams(c.streams)[0].reshape(c.ngroups, -1)
             streams = bf.v2_device_inputs(c, CPU)[0]
             assert streams.numpy().view(np.uint32).tobytes() == want.tobytes()
-            buffers.append(bf._upload_buffers.by_pinned[False].data_ptr())
+            buffers.append(bf._host_buffers.by_key[("upload", False)].data_ptr())
             assert huffman_tpu_torch.decompress(blob, "cpu") == data
         assert len(set(buffers)) == 1  # one buffer, served three times
+
+    _in_thread(run)
+
+
+def test_download_buffer_reuse_leaves_no_stale_bytes():
+    """A large odd-length container (its last byte just past the decoded
+    words), a smaller odd-length one (its last byte among the pad
+    symbols), the large one again, in one thread: one download buffer
+    serves all three, each result equals its input, and none changes when
+    the buffer is overwritten afterwards."""
+    large = _long_group_pairs() + b"\x09"  # five full groups of 16-pair blocks
+    small = _upload_case("odd_length")[0]
+    blobs = {x: huffman_tpu_torch.compress(x, "cpu", block_symbols=b)
+             for x, b in ((large, 16), (small, 64))}
+
+    def run():
+        outputs, buffers = [], []
+        for data in (large, small, large):
+            outputs.append(huffman_tpu_torch.decompress(blobs[data], "cpu"))
+            assert outputs[-1] == data
+            buffers.append(bf._host_buffers.by_key[("download", False)])
+        assert len({b.data_ptr() for b in buffers}) == 1
+        assert buffers[0].numel() == len(large)  # the words and the odd byte past them
+        buffers[0].fill_(0xA5)
+        assert outputs == [large, small, large]
+
+    _in_thread(run)
+
+
+def _no_pair_container() -> bytes:
+    """A v2 container of one byte that is not stored: compress stores
+    every input this short, so the container comes from its route."""
+    blob, _ = bf._compress_host_codebook(b"\x07", True, 7, None, 64, 0, 18, CPU,
+                                         "interleaved", True)
+    return blob
+
+
+ODD_TAILS = {  # (data, block_symbols, mode): where the odd last byte lands
+    "among_pad_symbols": (lambda: _upload_case("odd_length")[0], 64, "interleaved"),
+    "past_the_words": (lambda: _upload_case("exact_groups")[0] + b"\xfe", 16, "interleaved"),
+    "v1_among_pad_symbols": (lambda: _upload_case("odd_length")[0], 64, "blocks"),
+    "v1_past_the_words": (lambda: _upload_case("odd_length")[0][: 2 * 64 * 400] + b"\x01",
+                          64, "blocks"),
+    "no_pairs": (lambda: b"\x07", 64, "interleaved"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ODD_TAILS))
+def test_odd_tail_in_one_copy_matches_symbols_to_bytes(name):
+    """An odd input's output, its last byte written into the download
+    buffer and the result copied out once, equals ``symbols_to_bytes`` of
+    its pairs and last byte, whatever the buffer held before."""
+    from huffman_tpu_torch.container.reference_format import symbols_to_bytes
+
+    make, B, mode = ODD_TAILS[name]
+    data = make()
+    blob = (_no_pair_container() if name == "no_pairs"
+            else huffman_tpu_torch.compress(data, "cpu", block_symbols=B, mode=mode))
+    c = bf.ParsedContainer(blob)
+    assert c.is_odd and not c.stored and c.version == (1 if mode == "blocks" else 2)
+    want = symbols_to_bytes(np.frombuffer(data, "<u2", count=len(data) // 2), True, data[-1])
+    assert want == data
+
+    def run():
+        bf._host_buffer("download", len(data) + 4096, False).fill_(0xA5)
+        out = huffman_tpu_torch.decompress(blob, "cpu")
+        assert out == want
+        bf._host_buffers.by_key[("download", False)].fill_(0x5A)
+        assert out == want
 
     _in_thread(run)
 

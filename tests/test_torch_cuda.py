@@ -679,7 +679,8 @@ def test_htps_and_htpx_on_the_card_equal_the_host_path(dev):
 def test_htps_pool_threads_upload_from_their_own_pinned_buffers(dev, monkeypatch):
     """HTPS decode with two records in flight over records of two sizes
     (4 MiB chunks and a shorter last one): each pool thread fills and
-    uploads from a pinned buffer of its own."""
+    uploads from a pinned buffer of its own, and downloads the decoded
+    symbols into another pinned buffer of its own."""
     import threading
 
     from huffman_tpu_torch.container import streaming
@@ -687,21 +688,39 @@ def test_htps_pool_threads_upload_from_their_own_pinned_buffers(dev, monkeypatch
 
     data = port_silesia_like(10 << 20, seed=5).tobytes() + b"\x02"
     blob = streaming.compress_bytes(data, chunk_bytes=4 << 20, device=dev)
-    served: list[tuple[int, int, bool]] = []
-    upload_buffer = bf._upload_buffer
+    served: list[tuple[str, int, int, bool]] = []
+    host_buffer = bf._host_buffer
 
-    def recording(n_words, pinned):
-        buf = upload_buffer(n_words, pinned)
-        served.append((threading.get_ident(), buf.data_ptr(), buf.is_pinned()))
+    def recording(purpose, n_bytes, pinned):
+        buf = host_buffer(purpose, n_bytes, pinned)
+        served.append((purpose, threading.get_ident(), buf.data_ptr(), buf.is_pinned()))
         return buf
 
-    monkeypatch.setattr(bf, "_upload_buffer", recording)
+    monkeypatch.setattr(bf, "_host_buffer", recording)
     for _ in range(2):
         served.clear()
         assert streaming.decompress_bytes(blob, device=dev, pipeline=2) == data
-        assert len(served) == 3 and all(pinned for _, _, pinned in served)
-        last = {thread: ptr for thread, ptr, _ in served}  # each thread's buffer at the end
-        assert 1 <= len(last) <= 2 and len(set(last.values())) == len(last)
+        ends = []
+        for purpose in ("upload", "download"):
+            mine = [s[1:] for s in served if s[0] == purpose]
+            assert len(mine) == 3 and all(pinned for _, _, pinned in mine)
+            last = {thread: ptr for thread, ptr, _ in mine}  # each thread's buffer at the end
+            assert 1 <= len(last) <= 2
+            ends += last.values()
+        assert len(set(ends)) == len(ends)  # no buffer shared by two threads or two purposes
+
+
+def test_corrupt_payload_fails_crc_on_the_card(dev):
+    """A container with one flipped payload bit decodes on the card and
+    fails the host's CRC32 check with the CPU's text."""
+    from huffman_tpu_torch.corpus import silesia_like as port_silesia_like
+
+    data = port_silesia_like(4 << 20, seed=9).tobytes() + b"\x03"
+    blob = bytearray(huffman_tpu_torch.compress(data, dev))
+    assert huffman_tpu_torch.decompress(bytes(blob), dev) == data
+    blob[len(blob) // 2] ^= 0x10  # a payload bit
+    with pytest.raises(ValueError, match="CRC mismatch: corrupt container or decode bug"):
+        huffman_tpu_torch.decompress(bytes(blob), dev)
 
 
 def test_cli_on_the_card_equals_the_cpu(dev, tmp_path, monkeypatch, capsys):

@@ -145,13 +145,15 @@ def test_counters_after_n_calls(direction, n_calls):
 
 
 UPLOAD_BUFFER = ("upload_buffer_hits", "upload_buffer_misses")
+DOWNLOAD_BUFFER = ("download_buffer_hits", "download_buffer_misses")
 
 
-def _upload_buffer_counts(blobs_by_thread: list[list[bytes]]) -> tuple[int, int]:
-    """The decompress root's (hits, misses) added while one new thread
-    each (none with an upload buffer yet) decompresses its blobs in turn,
-    the threads at once; every output is checked against a decompress
-    made before."""
+def _buffer_counts(blobs_by_thread: list[list[bytes]],
+                   counters: tuple[str, str] = UPLOAD_BUFFER) -> tuple[int, int]:
+    """The decompress root's (hits, misses) of one host buffer's
+    ``counters`` added while one new thread each (none with a buffer yet)
+    decompresses its blobs in turn, the threads at once; every output is
+    checked against a decompress made before."""
     want = {b: ht.decompress(b, device="cpu") for blobs in blobs_by_thread for b in blobs}
     start = threading.Barrier(len(blobs_by_thread))
     errors: list[BaseException] = []
@@ -172,13 +174,13 @@ def _upload_buffer_counts(blobs_by_thread: list[list[bytes]]) -> tuple[int, int]
         t.join(timeout=120)
     assert not errors and not any(t.is_alive() for t in threads)
     c = _delta(before, profiling.counters(), "decompress")
-    return tuple(c.get(k, 0) for k in UPLOAD_BUFFER)
+    return tuple(c.get(k, 0) for k in counters)
 
 
 @pytest.mark.parametrize("n_calls", [1, 3])
 def test_upload_buffer_counters_after_n_calls(n_calls):
     blob = ht.compress(_data(3000), device="cpu")
-    assert _upload_buffer_counts([[blob] * n_calls]) == (n_calls - 1, 1)
+    assert _buffer_counts([[blob] * n_calls]) == (n_calls - 1, 1)
 
 
 def test_upload_buffer_misses_when_a_larger_container_comes():
@@ -186,12 +188,34 @@ def test_upload_buffer_misses_when_a_larger_container_comes():
     size = [bf.ParsedContainer(b) for b in (small, large)]
     assert size[0].ngroups * size[0].row_words < size[1].ngroups * size[1].row_words
     # The large one grows the buffer; the small one then fits in it.
-    assert _upload_buffer_counts([[small, large, small, large]]) == (2, 2)
+    assert _buffer_counts([[small, large, small, large]]) == (2, 2)
 
 
 def test_one_upload_buffer_miss_per_thread():
     blob = ht.compress(_data(3000), device="cpu")
-    assert _upload_buffer_counts([[blob] * 3 for _ in range(4)]) == (8, 4)
+    assert _buffer_counts([[blob] * 3 for _ in range(4)]) == (8, 4)
+
+
+@pytest.mark.parametrize("calls,want", [
+    ("one_call", (0, 1)),
+    ("three_calls", (2, 1)),
+    ("larger_container_comes", (2, 2)),
+    ("eight_threads_at_once", (16, 8)),
+])
+def test_download_buffer_counters(calls, want):
+    """A hit for each decode the thread's download buffer serves as it
+    stood, a miss for each that allocates or grows it: one a thread, and
+    one more where a container of more groups comes."""
+    small, large = (ht.compress(_data(n), device="cpu", block_symbols=16)
+                    for n in (3000, 60000))
+    assert (bf.ParsedContainer(small).ngroups, bf.ParsedContainer(large).ngroups) == (1, 4)
+    blobs_by_thread = {
+        "one_call": [[small]],
+        "three_calls": [[small] * 3],
+        "larger_container_comes": [[small, large, small, large]],
+        "eight_threads_at_once": [[small] * 3 for _ in range(8)],
+    }[calls]
+    assert _buffer_counts(blobs_by_thread, DOWNLOAD_BUFFER) == want
 
 
 def _tensor(where: str, nbytes: int = 4096):
@@ -378,4 +402,10 @@ def test_pageable_bytes_of_a_decompress_on_the_card(dev):
     assert got["h2d_pageable_bytes"] == 4 * c.ngroups + tables
     assert sum(got.get(k, 0) for k in UPLOAD_BUFFER) == 1
     assert streams.nbytes == 4 * c.ngroups * c.row_words
-    assert got["d2h_pageable_bytes"] == c.ngroups * GROUP_LANES * c.block_symbols * 2
+    # The decoded symbols come down into the thread's pinned download
+    # buffer: nothing crosses into pageable memory.
+    assert sum(got.get(k, 0) for k in DOWNLOAD_BUFFER) == 1
+    assert bf._host_buffers.by_key[("download", True)].is_pinned()
+    assert bf._host_buffers.by_key[("download", True)].numel() >= \
+        c.ngroups * GROUP_LANES * c.block_symbols * 2
+    assert got.get("d2h_pageable_bytes", 0) == 0
