@@ -46,18 +46,6 @@ Phases, each printing one line or a few:
      launches is the count of device kernels ``torch.profiler`` records
      in one call of each shape, read after phase 3 (``profiler_kernels``;
      the smoke fails if it records none);
-  2b. the route A/Bs that set the main path's choices (``route_abs``;
-     ``scripts/torch_route_ab.py`` runs them with 7 repetitions and the
-     deposit route's pieces), each form checked against the other first,
-     then timed in turns by CUDA events, median and spread of 5
-     repetitions, one ``ab ...`` line each and a ``route_ab`` JSON line:
-     stream assembly by the tensor-op ``pack_streams`` against K4 + K10
-     on the three 32 MiB rungs (and the encode line with each); the
-     gather boundary, K8 against K9, at tier 4096 (silesia-like) and
-     16384 (``zipf_pairs(32 MiB, 12000, rng(13))``); the decode, K1 rank
-     mode + K2 against K1 translate, on the silesia-like, 12,000-symbol,
-     wide30k, full-alphabet and 300-symbol containers at their groups and
-     at five times as many;
   3. the paths, each with the launch counts set to 0 just before it and
      read just after: the fused route (compress + decompress of the three
      32 MiB inputs and the 8 MiB one), the host-codebook route (32 MiB
@@ -111,7 +99,6 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from unittest import mock
 
 import numpy as np
 import torch
@@ -335,183 +322,6 @@ def slowest(variants: list[dict]) -> dict:
     return {**rec, "variants": variants}
 
 
-# Route A/Bs: the forms of the main path's three H100 choices, timed in
-# turns on the same inputs (scripts/torch_route_ab.py runs them with more
-# repetitions and the deposit route's pieces).
-
-def encode_streams_tensor_ops(codes, lens, n_pairs, min_len, n_real):
-    """``encode_streams`` as it assembled streams before the deposit route
-    (the form the JAX package chose for the TPU): the same protocol
-    lengths and bucketed cap, then the tensor-op ``pack_streams``."""
-    from huffman_tpu_torch.constants import GROUP_LANES
-    from huffman_tpu_torch.ops import cuda_encode
-
-    n_lanes, B = codes.shape
-    pos = torch.arange(n_lanes * B, device=codes.device).reshape(n_lanes, B)
-    eff = torch.where(pos < n_pairs, lens, min_len).to(torch.int32)
-    lane = torch.arange(n_lanes, device=codes.device)
-    bits = torch.where(lane < n_real, eff.sum(dim=1), 0)
-    gwords = (bits >> 5).reshape(-1, GROUP_LANES).sum(dim=1)
-    cap = cuda_encode.bucket_words(max(int(gwords.max()), 128))
-    return cuda_encode.pack_streams(codes, eff, n_real, cap)
-
-
-def deposit_inputs_first_form(codes, eff, n_real):
-    """K10's inputs as the deposit path first built them: the fire bits by
-    ``_fires`` (the words completed after each step, differenced) and an
-    int64 shift-sum of them."""
-    from huffman_tpu_torch.constants import GROUP_LANES
-    from huffman_tpu_torch.ops import cuda_encode
-    from huffman_tpu_torch.u32 import narrow
-
-    n_lanes, B = codes.shape
-    st = cuda_encode.pack_lanes(codes, eff)
-    r, fire = cuda_encode._fires(eff, n_real)
-    mb = -(-B // 32)
-    padded = torch.nn.functional.pad(fire, (0, mb * 32 - B)).reshape(n_lanes, mb, 32)
-    mask = narrow((padded.to(torch.int64) << torch.arange(32, device=codes.device)).sum(dim=2))
-    return st, mask, r[:, -1].reshape(-1, GROUP_LANES).sum(dim=1, dtype=torch.int32)
-
-
-def event_ms(fn, iters: int) -> float:
-    """Milliseconds a call: ``iters`` calls between two CUDA events."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def in_turns(forms: dict, iters: int, reps: int) -> dict:
-    """{form: (median ms, spread ms)} of the forms timed in turns (A B,
-    then B A, ...) after one warm-up call each; the spread is the slowest
-    repetition less the fastest."""
-    for fn in forms.values():
-        fn()
-    torch.cuda.synchronize()
-    names, times = list(forms), {k: [] for k in forms}
-    for r in range(reps):
-        for k in (names if r % 2 == 0 else names[::-1]):
-            times[k].append(event_ms(forms[k], iters))
-    return {k: (statistics.median(v), max(v) - min(v)) for k, v in times.items()}
-
-
-def ab(records: list, choice: str, case: str, forms: dict, iters: int, reps: int, card: str) -> dict:
-    """Time two forms, the current or old one first, and print whether the
-    second wins by more than the larger spread (the switching rule)."""
-    (a, (ma, sa)), (b, (mb, sb)) = in_turns(forms, iters, reps).items()
-    wins = ma - mb > max(sa, sb)
-    rec = {"choice": choice, "case": case, a: [ma, sa], b: [mb, sb], "diff_ms": ma - mb,
-           "larger_spread_ms": max(sa, sb), f"{b}_wins": wins, "iters": iters, "reps": reps}
-    records.append(rec)
-    print(f"ab {choice} [{case}]: {a} {ma:.4f} ms (spread {sa:.4f}), {b} {mb:.4f} ms (spread {sb:.4f}); "
-          f"{a} - {b} = {ma - mb:+.4f} ms; {b} {'wins' if wins else 'does not win'} by more than the "
-          f"larger spread ({card})", flush=True)
-    return rec
-
-
-def streams_equal(a, b) -> bool:
-    """Two (streams, counts) pairs hold the same words up to each count."""
-    (sa, ca), (sb, cb) = a, b
-    if not torch.equal(ca, cb):
-        return False
-    w = int(ca.max())
-    keep = torch.arange(w, device=sa.device)[None, :] < ca[:, None]
-    return torch.equal(sa[:, :w][keep], sb[:, :w][keep])
-
-
-def route_abs(enc_args: dict, gather_args: dict, blobs: dict, dev, card: str, reps: int) -> list[dict]:
-    """The three A/Bs, each form checked against the other before it is
-    timed. ``enc_args``: {rung: ``encode_streams``' arguments on the fused
-    route}; ``gather_args``: {input: (hist, n_unique, symbols, n_valid)}
-    at tiers below 32768; ``blobs``: {input: v2 container} for the decode.
-      (a) ``encode_streams``: tensor-op ``pack_streams`` against K4 + K10,
-          K10's inputs as first built against the package's, and the
-          fused encode (the bench's encode line) with each assembly;
-      (b) ``tiered_code_gather`` with K8 against K9 (the whole call, and
-          the gather stage from the canonical tables on), and the encode
-          line with each at tier 4096;
-      (c) K1 rank mode + K2 against K1 translate, at each container's
-          groups and with its streams repeated five times."""
-    from huffman_tpu_torch.constants import DEFAULT_MAX_CODE_LEN
-    from huffman_tpu_torch.container import block_format as bf
-    from huffman_tpu_torch.ops import cuda_decode, cuda_encode, cuda_gather, fused
-    from huffman_tpu_torch.ops.device_codebook import device_canonical_tables
-
-    recs, max_len = [], DEFAULT_MAX_CODE_LEN
-    for name, args in enc_args.items():
-        if not streams_equal(encode_streams_tensor_ops(*args), cuda_encode.encode_streams(*args)):
-            raise AssertionError(f"ab (a) {name}: the two stream assemblies differ")
-        ab(recs, "a encode_streams", name, {"tensor_ops": lambda: encode_streams_tensor_ops(*args),
-                                           "deposit": lambda: cuda_encode.encode_streams(*args)}, 10, reps, card)
-        codes, lens, n_pairs, min_len, n_real = args
-        eff = lens.to(torch.int32, copy=True)
-        eff.view(-1)[n_pairs:].fill_(min_len)
-        first, ours = deposit_inputs_first_form(codes, eff, n_real), cuda_encode._deposit_inputs(codes, eff, n_real)
-        if not all(torch.equal(x, y) for x, y in zip(first, ours)):
-            raise AssertionError(f"ab (a) {name}: K10's inputs differ between the forms")
-        ab(recs, "a K10 inputs", name, {"first": lambda: deposit_inputs_first_form(codes, eff, n_real),
-                                        "package": lambda: cuda_encode._deposit_inputs(codes, eff, n_real)},
-           10, reps, card)
-        _, _, sym, n_valid = gather_args[name]
-
-        def line_tensor_ops():
-            with mock.patch.object(fused, "encode_streams", encode_streams_tensor_ops):
-                return fused.encode_device(sym, n_valid, max_len)
-
-        ab(recs, "a encode line", name, {
-            "tensor_ops": line_tensor_ops, "deposit": lambda: fused.encode_device(sym, n_valid, max_len)},
-           5, reps, card)
-
-    for name, (hist, n_unique, sym, n_valid) in gather_args.items():
-        cap = fused.tier_for(n_unique)
-        if cap > 16384:
-            continue
-
-        def whole(min_cap):
-            with mock.patch.object(fused, "CANON_GATHER_MIN_CAP", min_cap):
-                return fused.tiered_code_gather(hist, n_unique, sym, n_valid, max_len=max_len)
-
-        k8, k9 = whole(cap + 1), whole(0)
-        if not all(torch.equal(x, y) for x, y in zip(k8[:3], k9[:3])):
-            raise AssertionError(f"ab (b) {name}: K8 and K9 give other codes")
-        case = f"{name}, tier {cap}"
-        ab(recs, "b tiered_code_gather", case, {"K8": lambda: whole(cap + 1), "K9": lambda: whole(0)},
-           20, reps, card)
-        tabs, present = device_canonical_tables(k8[0]), k8[0] > 0
-        ab(recs, "b gather stage", case, {
-            "K8": lambda: fused.rank_select_codes(tabs, present, cap, sym, n_valid, max_len),
-            "K9": lambda: fused.canonical_rank_codes(tabs, present, cap, sym, n_valid, max_len)},
-           20, reps, card)
-        if cap == 4096:
-            def line(min_cap):
-                with mock.patch.object(fused, "CANON_GATHER_MIN_CAP", min_cap):
-                    return fused.encode_device(sym, n_valid, max_len)
-
-            ab(recs, "b encode line", case, {"K8": lambda: line(cap + 1), "K9": lambda: line(0)}, 5, reps, card)
-
-    for name, blob in blobs.items():
-        c = bf.ParsedContainer(blob)
-        streams, n_real, tables, B = bf.v2_device_inputs(c, dev)
-        for mult in (1, 5):
-            s, n = streams.repeat(mult, 1), n_real.repeat(mult)
-
-            def translate():
-                return cuda_decode.decode_groups(s, n, tables, B, True)
-
-            def rank():
-                return cuda_gather.gather_u16_pairs(cuda_decode.decode_groups(s, n, tables, B, False),
-                                                    tables.sym_order)
-
-            if not torch.equal(translate(), rank()):
-                raise AssertionError(f"ab (c) {name} x{mult}: translate and rank + K2 differ")
-            ab(recs, "c decode", f"{name}, {c.codebook.n_unique} symbols, {s.shape[0]} groups",
-               {"rank_K2": rank, "translate": translate}, 20, reps, card)
-    return recs
-
-
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -562,8 +372,7 @@ def main() -> int:
     # Phase 2: kernel vs plain at the main paths' shapes.
     fused_calls = [(fused, "histogram"), (device_codebook, "package_merge"),
                    (fused, "gather_rank_select"), (fused, "gather_rank_canonical"),
-                   (cuda_encode, "pack_lanes"), (cuda_encode, "_deposit_inputs"), (cuda_encode, "_deposit"),
-                   (fused, "encode_streams"), (fused, "encode_from_histogram")]
+                   (cuda_encode, "pack_lanes"), (cuda_encode, "_deposit_inputs"), (cuda_encode, "_deposit")]
     blob, enc = capture(fused_calls, ht.compress, silesia, dev)
     blob_wide, enc_wide = capture(fused_calls, ht.compress, wide, dev)
     blob_full, enc_full = capture(fused_calls, ht.compress, full, dev)
@@ -670,28 +479,7 @@ def main() -> int:
             raise AssertionError(f"{name} [{variant}]: kernel differs from its plain version")
         records.setdefault(name, []).append(rec)
     del enc_host, dec, dec_tr, dec_wide, dec_full, dec_rank, pairs_args, dec_160, checks, deposit, unpacked
-    del enc_fib, hist_odd, canon_odd
-
-    # Phase 2b: the route A/Bs that set the main path's three choices.
-    zipf12k = zipf_pairs(BIG, 12000, np.random.default_rng(13)).tobytes()
-    blob_12k, enc_12k = capture([(fused, "encode_from_histogram")], ht.compress, zipf12k, dev)
-
-    def gather_args(e):
-        sym, n_valid, hist, _ = e["encode_from_histogram"]
-        return hist, int((hist > 0).sum()), sym, n_valid
-
-    t0 = time.perf_counter()
-    ab_records = route_abs(
-        {"silesia_like": enc["encode_streams"], "wide30k": enc_wide["encode_streams"],
-         "full_alphabet": enc_full["encode_streams"]},
-        {"silesia_like": gather_args(enc), "zipf12000": gather_args(enc_12k), "wide30k": gather_args(enc_wide),
-         "full_alphabet": gather_args(enc_full)},
-        {"silesia_like": blob, "zipf12000": blob_12k, "wide30k": blob_wide, "full_alphabet": blob_full,
-         "zipf300_8MiB": blob_small},
-        dev, card, reps=5)
-    print(json.dumps({"route_ab": ab_records, "device": card}))
-    print(f"route A/Bs in {time.perf_counter() - t0:.1f} s")
-    del enc, enc_wide, enc_full, enc_12k, zipf12k, blob_12k
+    del enc, enc_wide, enc_full, enc_fib, hist_odd, canon_odd
 
     # Phase 3: the paths, counting launches.
     def drive(name, data, **kwargs):

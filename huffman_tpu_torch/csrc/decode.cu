@@ -17,9 +17,8 @@
 //      launch from n (2n bytes, up to kMaxTranslate symbols: all 65,536
 //      u16 symbols take 128 KiB beside the ring's 64 KiB), so a small
 //      alphabet keeps the ring's footprint. The lookup is one shared load
-//      a lane and step; random ranks cost bank conflicts, which the A/B
-//      in scripts/torch_route_ab.py weighs against K2's pass over the
-//      output;
+//      a lane and step; random ranks cost bank conflicts, which the route
+//      A/B in PERF.md §6 weighs against K2's pass over the output;
 //   4. shift the 64-bit buffer left by len;
 //   5. lanes left with < 33 bits take one word each from the sequential
 //      stream at head + (exclusive count of refilling lanes before them);

@@ -20,9 +20,9 @@
 // the time is the shared atomics and the test of every symbol a block
 // reads: the loads alone take under half of it (PERF.md, PR 8).
 //
-// Measured and not kept (scripts/torch_kernel_ab.py --variants builds
-// it): each block reads its share once and adds a symbol of its peer's
-// bins in the peer's shared memory through distributed shared memory
+// Measured and not kept (an A/B on the H100, PERF.md §6): each block
+// reads its share once and adds a symbol of its peer's bins in the
+// peer's shared memory through distributed shared memory
 // (`red.shared::cluster.add`). Those remote adds made it 5x slower than
 // reading twice.
 //

@@ -34,8 +34,8 @@ from .tables import Tables
 
 # Largest alphabet the decode kernel translates in-kernel (csrc/decode.cu's
 # kMaxTranslate): its symbol table, 2 bytes a symbol, lies in shared memory
-# beside the stream ring. Measured on the H100 (scripts/torch_route_ab.py,
-# PERF.md): at 32 MiB, translate beats rank mode + K2 at every alphabet up
+# beside the stream ring. Measured on the H100 (PERF.md §6, the route
+# A/Bs): at 32 MiB, translate beats rank mode + K2 at every alphabet up
 # to the full 65,536 symbols, at 32 groups and at 160.
 TRANSLATE_MAX_ALPHABET = 65536
 

@@ -14,7 +14,7 @@ the interleaved group streams from it, as the JAX package has two:
   counts. Both compress routes assemble their streams this way, through
   ``encode_streams`` (protocol lengths, a bucketed ``words_cap`` from the
   groups' word totals, K4 and K10): on the H100 it takes a third of
-  ``pack_streams``' time (``scripts/torch_route_ab.py``, PERF.md).
+  ``pack_streams``' time (PERF.md §6, the route A/Bs).
 * ``pack_streams``, counterpart of ``pack_streams_pallas``: the reverse
   lookahead and the deposit as vectorised tensor ops, where the JAX package
   runs an XLA scan and a sorted scatter around its Pallas packer (the
@@ -193,7 +193,7 @@ def _mask_bits(fire: torch.Tensor) -> torch.Tensor:
     times 0x204081 put byte k's bit at bit 21 + k (the partial products
     never overlap and stay below 2**47), so two nibbles make a byte and
     four bytes a word. The cheapest of four equal forms on the H100
-    (scripts/torch_route_ab.py, PERF.md)."""
+    (PERF.md §6, the route A/Bs)."""
     n_lanes, B = fire.shape
     mb = -(-B // 32)
     if B % 32:

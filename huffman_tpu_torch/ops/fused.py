@@ -44,7 +44,7 @@ from .tables import PACKED_MAX_LEN
 
 # Tiers with at least this cap gather through canonical ranks (K9), smaller
 # ones through the packed-code rank-select table (K8). Measured on the H100
-# (scripts/torch_route_ab.py, PERF.md): at tier 4096 the whole
+# (PERF.md §6, the route A/Bs): at tier 4096 the whole
 # tiered_code_gather with K9 is not faster than with K8 by more than the
 # spread of either (table building and K7 dwarf the kernels' difference),
 # so the boundary stays where it was.
