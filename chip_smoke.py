@@ -37,7 +37,11 @@ Phases, each printing one line or a few:
        - the in-kernel deposit (K10) on the arguments the silesia-like and
          full-alphabet compresses hand it;
        - the unpacked rank-mode decode's rank -> symbol lookup (K5) on the
-         wide30k and full-alphabet decodes.
+         wide30k and full-alphabet decodes;
+       - the CRC32 of the decoded words (K11) on the words the silesia-like
+         decompress hands it, and on a view of them 4 bytes past a
+         16-byte boundary with a ragged tail (its unaligned head and its
+         tail).
      Times from CUDA events, with each kernel's bound (the larger of its
      bytes over 3.35 TB/s and its integer operations over 16.7 Tops/s) and,
      where one PyTorch call computes the same function, that call's time.
@@ -80,8 +84,8 @@ Phases, each printing one line or a few:
      CPU path (the plain versions, held equal to the JAX package by the CPU
      tests) writes, and every decompress must return the input. Each path's
      kernels must all have launched in its run: K4 and K10 on every v2
-     compress route, K1 on every decompress; K2 and K5 on the ops and
-     distributed routes, where rank mode is asked for.
+     compress route, K1 and K11 on every decompress; K2 and K5 on the ops
+     and distributed routes, where rank mode is asked for.
 
 The line before the card's JSON lines gives the smoke's wall seconds; the
 second-to-last line is the kernels' JSON record; the last line is
@@ -121,23 +125,27 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "package_merge": ("huffman_tpu_torch/csrc/package_merge.cu", "huffman_tpu/ops/device_codebook.py:62"),
     "gather_rank_select": ("huffman_tpu_torch/csrc/rank_gather.cu", "huffman_tpu/ops/pallas_gather.py:270"),
     "gather_rank_canonical": ("huffman_tpu_torch/csrc/rank_gather.cu", "huffman_tpu/ops/pallas_gather.py:363"),
+    "crc32_words": ("huffman_tpu_torch/csrc/crc32.cu",
+                    "none: the JAX package checks the CRC32 with zlib on the host "
+                    "(huffman_tpu/container/block_format.py:742)"),
 }
 FUSED_PATH = ("histogram", "package_merge", "gather_rank_select", "gather_rank_canonical",
-              "pack_lanes", "deposit_streams", "decode_groups")
-HOST_PATH = ("gather_codes", "pack_lanes", "deposit_streams", "decode_groups")
-V1_PATH = ("gather_codes", "pack_lanes")
-WIDE_PATH = ("pack_lanes", "deposit_streams", "histogram", "package_merge", "decode_groups")
+              "pack_lanes", "deposit_streams", "decode_groups", "crc32_words")
+HOST_PATH = ("gather_codes", "pack_lanes", "deposit_streams", "decode_groups", "crc32_words")
+V1_PATH = ("gather_codes", "pack_lanes", "crc32_words")
+WIDE_PATH = ("pack_lanes", "deposit_streams", "histogram", "package_merge", "decode_groups",
+             "crc32_words")
 REFERENCE_PATH = ("gather_codes",)
 OPS_PATH = ("deposit_streams", "gather_u16", "pack_lanes", "decode_groups", "gather_u16_pairs",
-            "histogram", "package_merge", "gather_rank_select")
+            "histogram", "package_merge", "gather_rank_select", "crc32_words")
 FRONT_END_PATH = ("histogram", "package_merge", "gather_rank_select", "pack_lanes", "deposit_streams",
-                  "decode_groups", "gather_codes")
+                  "decode_groups", "gather_codes", "crc32_words")
 DISTRIBUTED_PATH = ("histogram", "package_merge", "gather_rank_select", "gather_rank_canonical",
                     "pack_lanes", "deposit_streams", "decode_groups", "gather_u16_pairs", "gather_u16",
                     "gather_codes")
-NATIVE_PATH = ("gather_codes", "pack_lanes", "deposit_streams", "decode_groups")
+NATIVE_PATH = ("gather_codes", "pack_lanes", "deposit_streams", "decode_groups", "crc32_words")
 BENCH_PATH = ("histogram", "package_merge", "gather_rank_select", "pack_lanes", "deposit_streams",
-              "decode_groups")
+              "decode_groups", "crc32_words")
 HTPS_BYTES = 64 << 20
 
 
@@ -281,6 +289,10 @@ def work(name: str, args, out) -> tuple[int, int]:
         streams, n_real, tables, n_steps, translate = args
         ops = 40 * streams.shape[0] * 1024 * n_steps
         return nbytes(streams, n_real, tables.lj_limit, tables.base, tables.sym_order, *outs), ops
+    if name == "crc32_words":
+        # each byte read once; a byte's index, table lookup and XOR
+        words, n_bytes = args
+        return n_bytes + nbytes(*outs), 3 * n_bytes
     raise KeyError(name)
 
 
@@ -332,6 +344,7 @@ def main() -> int:
     from huffman_tpu_torch.container import block_format as bf
     from huffman_tpu_torch.corpus import fibonacci_pairs, silesia_like, wide30k, zipf_pairs
     from huffman_tpu_torch.ops import (
+        cuda_crc,
         cuda_decode,
         cuda_encode,
         cuda_gather,
@@ -356,7 +369,8 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
     check_no_spills(log, ("decode_groups_kernel", "pack_lanes_kernel", "leaf_tile_sort",
                           "leaf_merge_pass", "leaves_init", "pm_round", "pm_count", "pm_one_block",
-                          "deposit_streams_kernel", "histogram_kernel", "rank_canonical_kernel"))
+                          "deposit_streams_kernel", "histogram_kernel", "rank_canonical_kernel",
+                          "crc32_tiles_kernel", "crc32_combine_kernel"))
     check_k1_shared_memory(log)
 
     silesia = silesia_like(BIG, seed=7).tobytes()
@@ -379,7 +393,7 @@ def main() -> int:
     blob_small = ht.compress(small, dev)
     codebook = bf.ParsedContainer(blob).codebook
     _, enc_host = capture([(cuda_gather, "gather_codes")], ht.compress, silesia, dev, codebook=codebook)
-    _, dec = capture([(bf, "decode_groups")], ht.decompress, blob, dev)
+    _, dec = capture([(bf, "decode_groups"), (bf, "crc32_words")], ht.decompress, blob, dev)
     _, dec_tr = capture([(bf, "decode_groups")], ht.decompress, blob_small, dev)
     _, dec_wide = capture([(bf, "decode_groups")], ht.decompress, blob_wide, dev)
     _, dec_full = capture([(bf, "decode_groups")], ht.decompress, blob_full, dev)
@@ -417,6 +431,10 @@ def main() -> int:
     # K9 on the same kind of view of the wide30k rank-stage arguments.
     sym9, n_valid9, *tables9 = enc_wide["gather_rank_canonical"]
     canon_odd = (sym9.reshape(-1)[1:], n_valid9 - 5, *tables9)
+    # K11 on the decompress's words, and 4 bytes past a 16-byte boundary
+    # with a ragged tail: its unaligned head and its tail.
+    crc_words, crc_bytes = dec["crc32_words"]
+    crc_odd = (crc_words.reshape(-1)[1:], crc_bytes - 4 - 6)
 
     checks = [  # (record name, variant, kernel, plain, args, iters, plain iters)
         ("histogram", "silesia", ch.histogram, ch.histogram_plain, enc["histogram"], 20, 3),
@@ -452,6 +470,10 @@ def main() -> int:
         ("deposit_streams", "full", ce._deposit, ce.deposit_streams_plain, deposit["full"], 10, 1),
         ("gather_u16", "wide30k", cg.gather_u16, cg.gather_u16_plain, unpacked["wide30k"], 20, 3),
         ("gather_u16", "full", cg.gather_u16, cg.gather_u16_plain, unpacked["full"], 20, 3),
+        ("crc32_words", "silesia", cuda_crc.crc32_words, cuda_crc.crc32_words_plain, dec["crc32_words"],
+         20, 2),
+        ("crc32_words", "silesia, odd offset and length", cuda_crc.crc32_words, cuda_crc.crc32_words_plain,
+         crc_odd, 20, 2),
     ]
     records, k7_args = {}, {}
     for name, variant, kernel, plain, args, iters, plain_iters in checks:
@@ -479,6 +501,7 @@ def main() -> int:
             raise AssertionError(f"{name} [{variant}]: kernel differs from its plain version")
         records.setdefault(name, []).append(rec)
     del enc_host, dec, dec_tr, dec_wide, dec_full, dec_rank, pairs_args, dec_160, checks, deposit, unpacked
+    del crc_words, crc_odd
     del enc, enc_wide, enc_full, enc_fib, hist_odd, canon_odd
 
     # Phase 3: the paths, counting launches.

@@ -26,6 +26,10 @@ call to call, page-locked for a CUDA device: the v2 streams go up from
 the upload buffer, which ``ParsedContainer.padded_streams`` fills in one
 pass from the payload, and the decoded words of either version come down
 into the download buffer, out of which one copy makes the returned bytes.
+On a CUDA device the CRC32 check reads the decoded pairs on the card (K11,
+``ops/cuda_crc.py``) before they come down, and its 4 bytes come down
+with them; on the CPU, and where nothing was decoded, zlib reads the
+returned bytes.
 
 Each call is a root span of ``utils/profiling.py`` (``compress``,
 ``decompress``) with its stages as spans inside it, and counts its input
@@ -55,6 +59,7 @@ from ..constants import (
     MAX_SYMBOLS,
     NATIVE_MAGIC,
 )
+from ..ops.cuda_crc import crc32_words
 from ..ops.cuda_decode import decode_groups
 from ..ops.cuda_encode import bucket_words, encode_streams, pack_blocks
 from ..ops.cuda_gather import gather_table_codes
@@ -479,11 +484,14 @@ def decompress(
     codebook: Codebook | None = None,
 ) -> bytes:
     """Original bytes of an HTPU container, payload decoded on ``device``.
-    ``codebook`` is needed, and used, only when the header stores none."""
+    ``codebook`` is needed, and used, only when the header stores none.
+    The root counts ``crc_device`` or ``crc_host`` for a verified call, by
+    where the CRC32 was taken."""
     with span("decompress"):
         count("bytes_in", len(blob))
         with span("parse"):
             c = ParsedContainer(blob, codebook=codebook)
+        crc = None  # the card's CRC32 of the decoded pairs, where it took one
         if c.stored:
             data = bytes(c.payload[: c.original_size])
             if len(data) != c.original_size:
@@ -494,7 +502,7 @@ def decompress(
                 data = symbols_to_bytes(np.zeros(0, np.uint16), c.is_odd, c.last_byte)
             else:
                 decode = _decode_v1 if c.version == 1 else _decode_v2
-                out = decode(c, device)
+                out, crc = decode(c, device, 2 * n_pairs if verify_crc else 0)
                 with span("bytes"):
                     # Past the pairs lie the pad blocks' symbols, never returned.
                     if c.is_odd:
@@ -502,17 +510,24 @@ def decompress(
                     data = out[: c.original_size].tobytes()
         if verify_crc:
             with span("crc32"):
-                crc = zlib.crc32(data) & 0xFFFFFFFF
+                if crc is None:
+                    crc = zlib.crc32(data) & 0xFFFFFFFF
+                    count("crc_host", 1)
+                else:
+                    crc = int(crc) & 0xFFFFFFFF  # read before the thread's next decode
+                    if c.is_odd:
+                        crc = zlib.crc32(bytes([c.last_byte]), crc)
+                    count("crc_device", 1)
             if crc != c.crc32:
                 raise ValueError("CRC mismatch: corrupt container or decode bug")
         count("bytes_out", len(data))
         return data
 
 
-def _decode_v1(c: ParsedContainer, device: torch.device) -> np.ndarray:
+def _decode_v1(c: ParsedContainer, device: torch.device, crc_bytes: int):
     """Decoded symbols of a v1 container, block-major, as the u16 pairs'
-    little-endian bytes (``_download``'s view of the calling thread's
-    download buffer, valid until that thread's next decode)."""
+    little-endian bytes, and the CRC32 of their first ``crc_bytes`` bytes
+    where the card took it (``_download``)."""
     if c.codebook.n_unique == 0:
         raise ValueError("corrupt container: symbols but an empty codebook")
     B = c.block_symbols
@@ -530,32 +545,46 @@ def _decode_v1(c: ParsedContainer, device: torch.device) -> np.ndarray:
         )
     with span("postpack"):
         pairs = out.reshape(-1, 2)
-        return _download(pairs[:, 0] | (pairs[:, 1] << 16), c.original_size)
+        return _download(pairs[:, 0] | (pairs[:, 1] << 16), c.original_size, crc_bytes)
 
 
-def _decode_v2(c: ParsedContainer, device: torch.device) -> np.ndarray:
+def _decode_v2(c: ParsedContainer, device: torch.device, crc_bytes: int):
     """Decoded symbols of a v2 container, block-major, as the u16 pairs'
-    little-endian bytes (``_download``'s view of the calling thread's
-    download buffer, valid until that thread's next decode)."""
+    little-endian bytes, and the CRC32 of their first ``crc_bytes`` bytes
+    where the card took it (``_download``)."""
     streams, n_real, tables, B = v2_device_inputs(c, device)
     with span("decode"):
         out = decode_groups(streams, n_real, tables, B, True)
     with span("postpack"):
         # (g, step pair, lane) -> (g, lane, step pair): block-major u16 pairs.
         words = out.reshape(c.ngroups, B // 2, GROUP_LANES).transpose(1, 2).contiguous()
-        return _download(words, c.original_size)
+        return _download(words, c.original_size, crc_bytes)
 
 
-def _download(words: torch.Tensor, n_bytes: int) -> np.ndarray:
+def _download(words: torch.Tensor, n_bytes: int, crc_bytes: int):
     """The int32 ``words`` copied, in one blocking copy, to the start of
     the calling thread's download buffer (page-locked for a CUDA tensor,
-    so the card writes it directly), whose first max(``words.nbytes``,
-    ``n_bytes``) bytes are returned as a u8 view: room for the output's
-    odd last byte too, which may lie past the words."""
+    so the card writes it directly). Returns its first max(``words.nbytes``,
+    ``n_bytes``) bytes as a u8 view, room for the output's odd last byte
+    too, which may lie past the words; and, for a CUDA tensor and
+    ``crc_bytes`` > 0, the CRC32 of the words' first ``crc_bytes`` bytes,
+    taken on the card before the copy and brought down behind it in the
+    same buffer, as a one-element view there (else None). Both views stay
+    valid until the thread's next decode."""
     n = words.numel()
-    buf = _host_buffer("download", max(4 * n, n_bytes), words.is_cuda)
+    end = max(4 * n, n_bytes)
+    if not (crc_bytes and words.is_cuda):
+        buf = _host_buffer("download", end, words.is_cuda)
+        copied(words, buf[: 4 * n].view(torch.int32).copy_(words.reshape(n)))
+        return buf.numpy(), None
+    with span("crc32"):
+        crc = crc32_words(words, crc_bytes)
+    at = -(-end // 4) * 4
+    buf = _host_buffer("download", at + 4, True)
+    slot = buf[at : at + 4].view(torch.int32)
+    slot.copy_(crc, non_blocking=True)  # the blocking copy below waits for it
     copied(words, buf[: 4 * n].view(torch.int32).copy_(words.reshape(n)))
-    return buf.numpy()
+    return buf[:end].numpy(), slot
 
 
 def v2_device_inputs(c: ParsedContainer, device: torch.device):

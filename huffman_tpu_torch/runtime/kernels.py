@@ -62,6 +62,7 @@ KERNELS = {
         "htpu_gather_rank_canonical",
         [_P, _I64, _I64, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P],
     ),
+    "crc32_words": ("htpu_crc32_words", [_P, _I64, _P, _I64]),
 }
 
 _lock = threading.Lock()

@@ -10,6 +10,9 @@ up for the port need not have, so run them with:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import types
+import zlib
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +27,7 @@ from huffman_tpu.utils.benchmark import silesia_like, zipf_pairs
 from huffman_tpu_torch.container import block_format as bf
 from huffman_tpu_torch.corpus import fibonacci_pairs
 from huffman_tpu_torch.ops import (
+    cuda_crc,
     cuda_decode,
     cuda_encode,
     cuda_gather,
@@ -33,6 +37,7 @@ from huffman_tpu_torch.ops import (
 )
 from huffman_tpu_torch.ops.tables import tables_from_codebook, tables_from_numpy
 from huffman_tpu_torch.runtime import kernels
+from huffman_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -292,6 +297,7 @@ def test_slice_matches_host_path(dev, name):
         assert any(counts[k] for k in gathers)
         assert counts["pack_lanes"] and counts["decode_groups"]
         assert bool(counts["histogram"]) == fused_route
+        assert counts["crc32_words"] == counts["decode_groups"] == 1  # decompress's CRC32 on the card
 
 
 def test_slice_at_benchmark_size(dev):
@@ -623,6 +629,7 @@ def test_compress_routes_assemble_streams_by_deposit(dev, route, monkeypatch):
     assert huffman_tpu_torch.decompress(blob, dev) == data
     counts = kernels.launch_counts()
     assert counts["decode_groups"] >= 1 and counts["gather_u16_pairs"] == 0
+    assert counts["crc32_words"] == counts["decode_groups"]  # one CRC32 a container (HTPX: a shard)
 
 
 def test_v1_reference_and_deep_codes_at_benchmark_size(dev):
@@ -699,7 +706,9 @@ def test_htps_pool_threads_upload_from_their_own_pinned_buffers(dev, monkeypatch
     monkeypatch.setattr(bf, "_host_buffer", recording)
     for _ in range(2):
         served.clear()
+        kernels.reset_launch_counts()
         assert streaming.decompress_bytes(blob, device=dev, pipeline=2) == data
+        assert kernels.launch_counts()["crc32_words"] == 3  # each record's CRC32 on the card
         ends = []
         for purpose in ("upload", "download"):
             mine = [s[1:] for s in served if s[0] == purpose]
@@ -710,17 +719,123 @@ def test_htps_pool_threads_upload_from_their_own_pinned_buffers(dev, monkeypatch
         assert len(set(ends)) == len(ends)  # no buffer shared by two threads or two purposes
 
 
-def test_corrupt_payload_fails_crc_on_the_card(dev):
+def _recording_zlib(monkeypatch) -> list[int]:
+    """``block_format``'s zlib with a ``crc32`` that records the length of
+    each buffer it is given."""
+    lengths: list[int] = []
+
+    def crc32(data, value=0):
+        lengths.append(len(data))
+        return zlib.crc32(data, value)
+
+    monkeypatch.setattr(bf, "zlib", types.SimpleNamespace(crc32=crc32))
+    return lengths
+
+
+def _crc_counts(fn) -> dict:
+    before = profiling.counters().get("decompress", {})
+    fn()
+    after = profiling.counters()["decompress"]
+    return {k: after.get(k, 0) - before.get(k, 0) for k in ("crc_device", "crc_host")}
+
+
+def test_corrupt_payload_fails_crc_on_the_card(dev, monkeypatch):
     """A container with one flipped payload bit decodes on the card and
-    fails the host's CRC32 check with the CPU's text."""
+    fails the CRC32 check, taken on the card (``crc_device``; zlib in
+    ``block_format`` reads the odd last byte only), with the CPU's text."""
     from huffman_tpu_torch.corpus import silesia_like as port_silesia_like
 
     data = port_silesia_like(4 << 20, seed=9).tobytes() + b"\x03"
     blob = bytearray(huffman_tpu_torch.compress(data, dev))
-    assert huffman_tpu_torch.decompress(bytes(blob), dev) == data
+    lengths = _recording_zlib(monkeypatch)
+    out = []
+    assert _crc_counts(lambda: out.append(huffman_tpu_torch.decompress(bytes(blob), dev))) == \
+        {"crc_device": 1, "crc_host": 0}
+    assert out == [data]
     blob[len(blob) // 2] ^= 0x10  # a payload bit
-    with pytest.raises(ValueError, match="CRC mismatch: corrupt container or decode bug"):
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="^CRC mismatch: corrupt container or decode bug$"):
         huffman_tpu_torch.decompress(bytes(blob), dev)
+    assert kernels.launch_counts()["crc32_words"] == 1
+    assert lengths and max(lengths) <= 1
+
+
+CRC_LENGTHS = [2, 14, 16, 18, 510, 4098, cuda_crc.TILE_BYTES - 2, cuda_crc.TILE_BYTES,
+               cuda_crc.TILE_BYTES + 2, 5 * cuda_crc.TILE_BYTES + 4098 + 6]
+
+
+@pytest.mark.parametrize("n", CRC_LENGTHS)
+def test_crc32_kernel_matches_plain_and_zlib(dev, n):
+    """K11 against its plain version and zlib at lengths off a 16-byte
+    vector, a warp's 4 KiB and a block's tile, from each of the four
+    4-byte places against a 16-byte boundary (heads of 0, 12, 8 and 4
+    bytes before the first aligned vector)."""
+    raw = np.random.default_rng(n).integers(0, 256, (n + 35) // 4 * 4, dtype=np.uint8)
+    base = torch.from_numpy(raw.view(np.int32).copy()).to(dev)
+    assert base.data_ptr() % 16 == 0
+    for off in range(4):
+        words = base[off:]
+        kernels.reset_launch_counts()
+        got = cuda_crc.crc32_words(words, n)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["crc32_words"] == 1
+        assert int(got) & 0xFFFFFFFF == zlib.crc32(raw[4 * off : 4 * off + n].tobytes()), off
+        assert torch.equal(got, cuda_crc.crc32_words_plain(words, n)), off
+
+
+def _decompress_capturing_crc(dev, blob, monkeypatch):
+    """Decompress ``blob`` on the card; return (bytes, the (words, n_bytes)
+    each K11 call was given, the CRC counts, the zlib lengths)."""
+    seen = []
+    real = bf.crc32_words
+
+    def recording(words, n_bytes):
+        seen.append((words, n_bytes))
+        return real(words, n_bytes)
+
+    monkeypatch.setattr(bf, "crc32_words", recording)
+    lengths = _recording_zlib(monkeypatch)
+    out = []
+    counts = _crc_counts(lambda: out.append(huffman_tpu_torch.decompress(blob, dev)))
+    return out[0], seen, counts, lengths
+
+
+@pytest.mark.parametrize("case", ["v2, 32 MiB", "v2, odd size", "v1, odd size"])
+def test_decompress_takes_the_crc_on_the_card(dev, case, monkeypatch):
+    """A verified decompress on the card takes its CRC32 from K11 over the
+    decoded words' first 2 * n_pairs bytes (the pad blocks' symbols left
+    out), equal to the plain version and to zlib; the odd last byte folds
+    in on the host: the main path's 32 MiB, an odd size, and the v1 route."""
+    from huffman_tpu_torch.corpus import silesia_like as port_silesia_like
+
+    size, mode = {"v2, 32 MiB": (32 << 20, "interleaved"), "v2, odd size": ((3 << 20) + 777, "interleaved"),
+                  "v1, odd size": ((3 << 20) + 777, "blocks")}[case]
+    data = port_silesia_like(size & ~1, seed=13).tobytes() + (b"\x5a" if size & 1 else b"")
+    blob = huffman_tpu_torch.compress(data, dev, mode=mode)
+    out, seen, counts, lengths = _decompress_capturing_crc(dev, blob, monkeypatch)
+    assert out == data
+    assert counts == {"crc_device": 1, "crc_host": 0}
+    assert lengths == ([1] if size & 1 else [])
+    (words, n_bytes), = seen
+    assert n_bytes == 2 * (size // 2) <= 4 * words.numel()
+    got = cuda_crc.crc32_words(words, n_bytes)
+    assert torch.equal(got, cuda_crc.crc32_words_plain(words, n_bytes))
+    assert int(got) & 0xFFFFFFFF == zlib.crc32(data[:n_bytes])
+
+
+def test_unverified_decompress_launches_no_crc(dev, monkeypatch):
+    """``verify_crc=False`` launches no K11 and counts neither route."""
+    from huffman_tpu_torch.corpus import silesia_like as port_silesia_like
+
+    data = port_silesia_like(1 << 20, seed=2).tobytes()
+    blob = huffman_tpu_torch.compress(data, dev)
+    lengths = _recording_zlib(monkeypatch)
+    kernels.reset_launch_counts()
+    out = []
+    counts = _crc_counts(lambda: out.append(huffman_tpu_torch.decompress(blob, dev, verify_crc=False)))
+    assert out == [data] and counts == {"crc_device": 0, "crc_host": 0} and lengths == []
+    launched = kernels.launch_counts()
+    assert launched["decode_groups"] == 1 and launched["crc32_words"] == 0
 
 
 def test_cli_on_the_card_equals_the_cpu(dev, tmp_path, monkeypatch, capsys):

@@ -409,3 +409,5 @@ def test_pageable_bytes_of_a_decompress_on_the_card(dev):
     assert bf._host_buffers.by_key[("download", True)].numel() >= \
         c.ngroups * GROUP_LANES * c.block_symbols * 2
     assert got.get("d2h_pageable_bytes", 0) == 0
+    # The CRC32 was taken on the card, and its 4 bytes came down pinned too.
+    assert (got.get("crc_device", 0), got.get("crc_host", 0)) == (1, 0)
