@@ -27,7 +27,9 @@ Phases, each printing one line or a few:
          symbol pairs (K2), as alphabets past the translate boundary and
          the distributed decoder run it, and again with its streams
          repeated five times along the groups (160 groups: more blocks
-         than the card's 132 SMs);
+         than the card's 132 SMs); the full-alphabet streams repeated eight
+         times along the groups (256 groups, the resident cell's shape),
+         in translate mode;
        - the histogram again on a view of the silesia-like symbols 2 bytes
          past a 16-byte boundary, with n_valid % 8 == 3 (its unaligned
          head and its tail), and the canonical-rank gather on the same
@@ -39,9 +41,10 @@ Phases, each printing one line or a few:
        - the unpacked rank-mode decode's rank -> symbol lookup (K5) on the
          wide30k and full-alphabet decodes;
        - the CRC32 of the decoded words (K11) on the words the silesia-like
-         decompress hands it, and on a view of them 4 bytes past a
-         16-byte boundary with a ragged tail (its unaligned head and its
-         tail).
+         decompress hands it, on a view of them 4 bytes past a 16-byte
+         boundary with a ragged tail (its unaligned head and its tail), and
+         on the 256 MiB of words K1 writes at 256 groups (8,192 tiles
+         into its one-block combine).
      Times from CUDA events, with each kernel's bound (the larger of its
      bytes over 3.35 TB/s and its integer operations over 16.7 Tops/s) and,
      where one PyTorch call computes the same function, that call's time.
@@ -61,6 +64,9 @@ Phases, each printing one line or a few:
      in-kernel deposit path against ``pack_streams``, rank mode asked
      for explicitly: K1 + K2 against K1 translate and the unpacked decode
      (K5) against the packed one, the on-device roundtrip at 32 MiB), the
+     resident route (the full-alphabet container held on the card as a
+     ``ResidentContainer``, decoded into a CUDA tensor three times, equal
+     to the input, K1 and K11 launched once a call and nothing else), the
      front-end route (an HTPS stream of 64 MiB silesia-like in 16 MiB
      chunks with ``pipeline`` 2 and 1, which must write the same bytes,
      with their wall times; HTPX archives of the 32 MiB silesia-like in 4
@@ -143,6 +149,7 @@ FRONT_END_PATH = ("histogram", "package_merge", "gather_rank_select", "pack_lane
 DISTRIBUTED_PATH = ("histogram", "package_merge", "gather_rank_select", "gather_rank_canonical",
                     "pack_lanes", "deposit_streams", "decode_groups", "gather_u16_pairs", "gather_u16",
                     "gather_codes")
+RESIDENT_PATH = ("decode_groups", "crc32_words")
 NATIVE_PATH = ("gather_codes", "pack_lanes", "deposit_streams", "decode_groups", "crc32_words")
 BENCH_PATH = ("histogram", "package_merge", "gather_rank_select", "pack_lanes", "deposit_streams",
               "decode_groups", "crc32_words")
@@ -424,6 +431,14 @@ def main() -> int:
     streams, n_real, *rest = dec_rank
     dec_160 = (streams.repeat(5, 1), n_real.repeat(5), *rest)
     cg, ce, cd, ch, dc = cuda_gather, cuda_encode, cuda_decode, cuda_hist, device_codebook
+    # The full-alphabet streams repeated 8 times along the groups: the
+    # resident cell's shape, 256 groups of K1 with the 65,536-symbol table
+    # in translate mode, and K11 over the 256 MiB of words it writes.
+    streams, n_real, *rest = dec_full["decode_groups"]
+    dec_256 = (streams.repeat(8, 1), n_real.repeat(8), *rest)
+    words_256 = cd.decode_groups(*dec_256).reshape(-1)
+    crc_256 = (words_256, 4 * words_256.numel())
+    del streams, n_real, rest
     # K6 on a view 2 bytes past a 16-byte boundary, n_valid % 8 == 3: the
     # kernel's unaligned head and its tail.
     sym, n_valid = enc["histogram"]
@@ -466,6 +481,8 @@ def main() -> int:
          dec_full["decode_groups"], 5, 2),
         ("decode_groups", "rank mode, 160 groups", cd.decode_groups, cd.decode_groups_plain,
          dec_160, 5, 1),
+        ("decode_groups", "translate mode, full alphabet, 256 groups", cd.decode_groups,
+         cd.decode_groups_plain, dec_256, 5, 1),
         ("deposit_streams", "silesia", ce._deposit, ce.deposit_streams_plain, deposit["silesia"], 10, 1),
         ("deposit_streams", "full", ce._deposit, ce.deposit_streams_plain, deposit["full"], 10, 1),
         ("gather_u16", "wide30k", cg.gather_u16, cg.gather_u16_plain, unpacked["wide30k"], 20, 3),
@@ -474,6 +491,8 @@ def main() -> int:
          20, 2),
         ("crc32_words", "silesia, odd offset and length", cuda_crc.crc32_words, cuda_crc.crc32_words_plain,
          crc_odd, 20, 2),
+        ("crc32_words", "256 MiB of full-alphabet K1 words", cuda_crc.crc32_words,
+         cuda_crc.crc32_words_plain, crc_256, 10, 1),
     ]
     records, k7_args = {}, {}
     for name, variant, kernel, plain, args, iters, plain_iters in checks:
@@ -501,7 +520,7 @@ def main() -> int:
             raise AssertionError(f"{name} [{variant}]: kernel differs from its plain version")
         records.setdefault(name, []).append(rec)
     del enc_host, dec, dec_tr, dec_wide, dec_full, dec_rank, pairs_args, dec_160, checks, deposit, unpacked
-    del crc_words, crc_odd
+    del crc_words, crc_odd, dec_256, words_256, crc_256
     del enc, enc_wide, enc_full, enc_fib, hist_odd, canon_odd
 
     # Phase 3: the paths, counting launches.
@@ -654,6 +673,23 @@ def main() -> int:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         return result, statistics.median(walls)
+
+    def resident_route():
+        # The full-alphabet container held on the card, decoded into a
+        # CUDA tensor: K1 and K11 once a call, and no other kernel.
+        h = ht.ResidentContainer(blob_full, dev)
+        want = torch.frombuffer(bytearray(full), dtype=torch.uint8).to(dev)
+        kernels.reset_launch_counts()
+        out, t = timed(ht.decompress, h)
+        if not torch.equal(out, want):
+            raise AssertionError("resident decode of the full-alphabet container != its input")
+        launched = {k: v for k, v in kernels.launch_counts().items() if v}
+        if launched != {"decode_groups": 3, "crc32_words": 3}:
+            raise AssertionError(f"resident route: launches {launched}, not K1 and K11 once a call")
+        print(f"resident full_alphabet_32MiB: {h.nbytes} B held on the card; median of 3 "
+              f"{t * 1e3:.3f} ms ({len(full) / t / 1e9:.3f} GB/s), equal to the input ({card})")
+
+    path_counts.append(run_path("resident route", RESIDENT_PATH, {}, extra=resident_route))
 
     def front_end_route():
         import tempfile

@@ -13,17 +13,26 @@ imports JAX.
 Public API (the command line is ``python -m huffman_tpu_torch``, the
 distribution layer ``huffman_tpu_torch.parallel.pipeline``):
     compress(data, device="cuda", ..., n_shards=None) / decompress(blob, device="cuda", ...)
+    ResidentContainer(blob, device="cuda"): a container held on the card;
+        decompress(handle) decodes it there into a uint8 tensor
     compress_reference(data, device="cuda") / decompress_reference(blob)
     Codebook, code_lengths_from_frequencies
     resolve_device(device)
 """
 
-from .api import compress, compress_reference, decompress, decompress_reference
+from .api import (
+    ResidentContainer,
+    compress,
+    compress_reference,
+    decompress,
+    decompress_reference,
+)
 from .codebook import Codebook, code_lengths_from_frequencies
 from .device import resolve_device
 
 __all__ = [
     "Codebook",
+    "ResidentContainer",
     "code_lengths_from_frequencies",
     "compress",
     "compress_reference",

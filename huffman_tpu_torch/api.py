@@ -1,6 +1,9 @@
 """Public compress/decompress of the PyTorch port (counterpart of
 huffman_tpu/api.py): the native HTPU container (v2 and v1), HTPX sharded
-archives, HTPS streams, and the reference ``.compressed`` format."""
+archives, HTPS streams, and the reference ``.compressed`` format; and
+``ResidentContainer``, an HTPU container held on the card, which
+``decompress`` decodes into a tensor there (the port's own: the JAX package
+has no counterpart)."""
 
 from __future__ import annotations
 
@@ -8,6 +11,7 @@ import torch
 
 from .codebook import Codebook
 from .container import block_format, detect, reference_format, sharded, streaming
+from .container.block_format import ResidentContainer
 from .device import resolve_device
 from .runtime import native
 
@@ -46,16 +50,23 @@ def compress(
 
 
 def decompress(
-    blob: bytes,
+    blob: bytes | ResidentContainer,
     device: str | torch.device = "cuda",
     codebook: Codebook | None = None,
     verify_crc: bool = True,
-) -> bytes:
+) -> bytes | torch.Tensor:
     """Decompress a native container (HTPU block, HTPX sharded archive, or
     HTPS stream, told apart by magic), decoding on ``device`` (the card
     unless the caller asks for "cpu"). ``codebook`` (for an HTPU container
     that stores none) and ``verify_crc=False`` (skip the CRC32 check)
-    apply to HTPU containers. Other blobs raise ``ValueError``."""
+    apply to HTPU containers. Other blobs raise ``ValueError``.
+
+    A ``ResidentContainer`` in place of the bytes is decoded on the device
+    that holds it, whatever ``device`` says (``codebook`` is not read), and
+    the result is a new ``torch.uint8`` tensor of the original bytes there,
+    not ``bytes``."""
+    if isinstance(blob, ResidentContainer):
+        return block_format.decompress(blob, blob.device, verify_crc=verify_crc)
     dev = resolve_device(device)
     kind = detect(blob)
     if kind == "htpx":

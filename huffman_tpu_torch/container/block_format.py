@@ -26,10 +26,17 @@ call to call, page-locked for a CUDA device: the v2 streams go up from
 the upload buffer, which ``ParsedContainer.padded_streams`` fills in one
 pass from the payload, and the decoded words of either version come down
 into the download buffer, out of which one copy makes the returned bytes.
-On a CUDA device the CRC32 check reads the decoded pairs on the card (K11,
+The decoded words are reordered into a new uint8 tensor on the device,
+with an odd input's last byte put in place there (``_output``); on a CUDA
+device the CRC32 check reads its original bytes on the card (K11,
 ``ops/cuda_crc.py``) before they come down, and its 4 bytes come down
 with them; on the CPU, and where nothing was decoded, zlib reads the
 returned bytes.
+
+``ResidentContainer`` holds a v2 container on a device, parsed and
+uploaded once; ``decompress`` of such a handle runs K1 and ``_output``
+there and returns the tensor, reading back only the CRC's 4 bytes
+(``_decompress_resident``). It uses neither of the thread's buffers.
 
 Each call is a root span of ``utils/profiling.py`` (``compress``,
 ``decompress``) with its stages as spans inside it, and counts its input
@@ -45,6 +52,7 @@ from __future__ import annotations
 
 import functools
 import threading
+import time
 import zlib
 
 import numpy as np
@@ -59,6 +67,7 @@ from ..constants import (
     MAX_SYMBOLS,
     NATIVE_MAGIC,
 )
+from ..device import resolve_device
 from ..ops.cuda_crc import crc32_words
 from ..ops.cuda_decode import decode_groups
 from ..ops.cuda_encode import bucket_words, encode_streams, pack_blocks
@@ -66,14 +75,16 @@ from ..ops.cuda_gather import gather_table_codes
 from ..ops.decode import decode_blocks
 from ..ops.fused import encode_device_bytes
 from ..ops.histogram import bytes_to_symbols_device
-from ..ops.tables import PACKED_MAX_LEN, tables_from_codebook
+from ..ops.tables import PACKED_MAX_LEN, Tables, tables_from_codebook
 from ..u32 import from_numpy_u32, to_numpy_u32
 from ..utils.profiling import copied, count, span
+from . import detect
 from . import interleave as il
 from .reference_format import bytes_to_symbols, histogram_host, symbols_to_bytes
 
 _HEADER_BYTES = 32
 _COUNTS_BYTES = 4 * MAX_CODE_LEN
+_PASS_CODEBOOK = "container stores its codebook externally; pass codebook="
 
 # Inputs of at least this many symbols take the fused route, as in the JAX
 # package.
@@ -371,9 +382,7 @@ class ParsedContainer:
             raise ValueError("corrupt container: bad unique count")
         if self.external_codebook:
             if codebook is None:
-                raise ValueError(
-                    "container stores its codebook externally; pass codebook="
-                )
+                raise ValueError(_PASS_CODEBOOK)
             self.codebook, off = codebook, _HEADER_BYTES
         else:
             self.codebook, off = _codebook_from_header(blob, self.n_unique)
@@ -477,21 +486,104 @@ class ParsedContainer:
         return slab
 
 
+class ResidentContainer:
+    """An HTPU container held on a device and decoded there whole by each
+    ``decompress(handle)``, with no copy of its data between host and
+    card: the form for data kept on the card and decoded where it is used.
+
+    Loading (a root span ``load``) parses ``blob`` once and keeps on
+    ``device`` what every decode needs. For v2: K1's padded stream rows,
+    filled by ``ParsedContainer.padded_streams`` into a fresh host array
+    that is freed when the load returns (not the thread's reused upload
+    buffer), each group's real lanes and K1's decode tables. For a stored
+    container or one that holds no byte pair: the raw bytes. The header's
+    scalars stay on the host. v1, HTPS and HTPX containers, and one that
+    stores no codebook, raise ``ValueError``: ``decompress(bytes)`` reads
+    them.
+
+    Nothing writes the handle's tensors after the load, so any thread may
+    decode it, and each decode returns a tensor of its own. They hold
+    ``nbytes`` of the device's memory until the handle is dropped. The
+    root counts ``resident_bytes`` (``nbytes``) and ``original_bytes``."""
+
+    def __init__(self, blob: bytes, device: str | torch.device = "cuda"):
+        dev = resolve_device(device)
+        kind = detect(blob)
+        if kind in ("htps", "htpx"):
+            raise ValueError(
+                f"a ResidentContainer holds one HTPU container, not an {kind.upper()} "
+                "one: decode it with decompress(bytes)")
+        with span("load"):
+            with span("parse"):
+                try:
+                    c = ParsedContainer(blob)
+                except ValueError as e:
+                    if str(e) != _PASS_CODEBOOK:
+                        raise
+                    raise ValueError(f"{_PASS_CODEBOOK} to decompress(bytes)") from None
+            n_pairs = (c.original_size - (1 if c.is_odd else 0)) // 2
+            if not c.stored and c.version != 2:
+                raise ValueError(
+                    f"a ResidentContainer holds v2 containers, not v{c.version}: decode "
+                    "it with decompress(bytes)")
+            self.device = dev
+            self.container_bytes = len(blob)
+            self.original_size = c.original_size
+            self.crc32 = c.crc32
+            self.is_odd, self.last_byte = c.is_odd, c.last_byte
+            self.block_symbols, self.ngroups = c.block_symbols, 0
+            self.streams = self.n_real = self.tables = self.raw = None
+            if c.stored or n_pairs <= 0:
+                if c.stored:
+                    raw = bytes(c.payload[: c.original_size])
+                    if len(raw) != c.original_size:
+                        raise ValueError("truncated stored container")
+                else:  # at most the odd byte, as decompress(bytes) returns it
+                    raw = bytes([c.last_byte]) if c.is_odd else b""
+                    self.original_size = len(raw)
+                with span("upload"):
+                    host = torch.frombuffer(bytearray(raw), dtype=torch.uint8) if raw else \
+                        torch.empty(0, dtype=torch.uint8)
+                    self.raw = copied(host, host.to(dev))
+                held = [self.raw]
+            else:
+                self.ngroups = c.ngroups
+                # K1 reads the decode tables alone.
+                tables = _v2_tables(c, dev)
+                self.tables = tables._replace(enc_packed=None, enc_codes=None, enc_lens=None)
+                with span("pad"):
+                    host = torch.from_numpy(c.padded_streams().view(np.int32))
+                with span("upload"):
+                    self.streams = copied(host, host.to(dev))
+                    n_real = torch.from_numpy(c.n_real.astype(np.int32))
+                    self.n_real = copied(n_real, n_real.to(dev))
+                held = [self.streams, self.n_real, self.tables.lj_limit, self.tables.base,
+                        self.tables.sym_order]
+            self.nbytes = sum(t.nbytes for t in held)
+            count("resident_bytes", self.nbytes)
+            count("original_bytes", self.original_size)
+
+
 def decompress(
-    blob: bytes,
+    blob: bytes | ResidentContainer,
     device: torch.device,
     verify_crc: bool = True,
     codebook: Codebook | None = None,
-) -> bytes:
+) -> bytes | torch.Tensor:
     """Original bytes of an HTPU container, payload decoded on ``device``.
     ``codebook`` is needed, and used, only when the header stores none.
-    The root counts ``crc_device`` or ``crc_host`` for a verified call, by
-    where the CRC32 was taken."""
+    A ``ResidentContainer`` in place of the bytes decodes on the device
+    that holds it (``device`` and ``codebook`` are not read) into a new
+    uint8 tensor there (``_decompress_resident``). The root counts
+    ``crc_device`` or ``crc_host`` for a verified call, by where the CRC32
+    was taken."""
     with span("decompress"):
+        if isinstance(blob, ResidentContainer):
+            return _decompress_resident(blob, verify_crc)
         count("bytes_in", len(blob))
         with span("parse"):
             c = ParsedContainer(blob, codebook=codebook)
-        crc = None  # the card's CRC32 of the decoded pairs, where it took one
+        crc = None  # the card's CRC32 of the original bytes, where it took one
         if c.stored:
             data = bytes(c.payload[: c.original_size])
             if len(data) != c.original_size:
@@ -502,11 +594,9 @@ def decompress(
                 data = symbols_to_bytes(np.zeros(0, np.uint16), c.is_odd, c.last_byte)
             else:
                 decode = _decode_v1 if c.version == 1 else _decode_v2
-                out, crc = decode(c, device, 2 * n_pairs if verify_crc else 0)
+                out, crc = decode(c, device, verify_crc)
                 with span("bytes"):
-                    # Past the pairs lie the pad blocks' symbols, never returned.
-                    if c.is_odd:
-                        out[2 * n_pairs] = c.last_byte
+                    # Past the original bytes lie the pad blocks' symbols, never returned.
                     data = out[: c.original_size].tobytes()
         if verify_crc:
             with span("crc32"):
@@ -515,8 +605,6 @@ def decompress(
                     count("crc_host", 1)
                 else:
                     crc = int(crc) & 0xFFFFFFFF  # read before the thread's next decode
-                    if c.is_odd:
-                        crc = zlib.crc32(bytes([c.last_byte]), crc)
                     count("crc_device", 1)
             if crc != c.crc32:
                 raise ValueError("CRC mismatch: corrupt container or decode bug")
@@ -524,10 +612,9 @@ def decompress(
         return data
 
 
-def _decode_v1(c: ParsedContainer, device: torch.device, crc_bytes: int):
-    """Decoded symbols of a v1 container, block-major, as the u16 pairs'
-    little-endian bytes, and the CRC32 of their first ``crc_bytes`` bytes
-    where the card took it (``_download``)."""
+def _decode_v1(c: ParsedContainer, device: torch.device, verify_crc: bool):
+    """A v1 container's original bytes and the card's CRC32 of them, as
+    ``_download`` returns them."""
     if c.codebook.n_unique == 0:
         raise ValueError("corrupt container: symbols but an empty codebook")
     B = c.block_symbols
@@ -543,48 +630,115 @@ def _decode_v1(c: ParsedContainer, device: torch.device, crc_bytes: int):
         out = decode_blocks(
             slab, tables.lj_limit, tables.base, tables.sym_order, B, tables.max_len
         )
-    with span("postpack"):
-        pairs = out.reshape(-1, 2)
-        return _download(pairs[:, 0] | (pairs[:, 1] << 16), c.original_size, crc_bytes)
+    pairs = out.reshape(-1, 2)
+    return _download(*_output(c, pairs[:, 0] | (pairs[:, 1] << 16), verify_crc))
 
 
-def _decode_v2(c: ParsedContainer, device: torch.device, crc_bytes: int):
-    """Decoded symbols of a v2 container, block-major, as the u16 pairs'
-    little-endian bytes, and the CRC32 of their first ``crc_bytes`` bytes
-    where the card took it (``_download``)."""
-    streams, n_real, tables, B = v2_device_inputs(c, device)
+def _decode_v2(c: ParsedContainer, device: torch.device, verify_crc: bool):
+    """A v2 container's original bytes and the card's CRC32 of them, as
+    ``_download`` returns them."""
+    streams, n_real, tables, _ = v2_device_inputs(c, device)
+    return _download(*_decode_k1(c, streams, n_real, tables, verify_crc))
+
+
+def _decode_k1(c, streams: torch.Tensor, n_real: torch.Tensor, tables: Tables,
+               verify_crc: bool):
+    """K1 over a v2 container's padded rows on their device, then
+    ``_output`` of its words; ``c`` is the ``ParsedContainer`` or the
+    ``ResidentContainer`` they came from."""
+    B = c.block_symbols
     with span("decode"):
         out = decode_groups(streams, n_real, tables, B, True)
+    # (g, step pair, lane) -> (g, lane, step pair): block-major u16 pairs.
+    return _output(c, out.view(c.ngroups, B // 2, GROUP_LANES).transpose(1, 2), verify_crc)
+
+
+def _output(c, words: torch.Tensor, verify_crc: bool):
+    """The decoded u16 pairs ``words`` (int32, block-major in their index
+    order: a strided view does, the copy reorders it) copied into a new
+    uint8 tensor on their device, with ``c``'s odd last byte put in place
+    after the pairs (``postpack``). Returns its first max(``words``' bytes,
+    ``c.original_size``) bytes, of which the first ``original_size`` are
+    the original bytes and the rest the pad blocks' symbols; and, for a
+    CUDA tensor and ``verify_crc``, K11's CRC32 of the original bytes as a
+    one-element tensor there (``crc32``), else None. The tensor's storage
+    is rounded up to whole words, which K11 reads."""
+    n, m = c.original_size, 4 * words.numel()
+    end = max(m, n)
     with span("postpack"):
-        # (g, step pair, lane) -> (g, lane, step pair): block-major u16 pairs.
-        words = out.reshape(c.ngroups, B // 2, GROUP_LANES).transpose(1, 2).contiguous()
-        return _download(words, c.original_size, crc_bytes)
+        buf = torch.empty(-(-end // 4) * 4, dtype=torch.uint8, device=words.device)
+        buf[:m].view(torch.int32).view(words.shape).copy_(words)
+        if c.is_odd:
+            buf[n - 1 : n].fill_(c.last_byte)
+    crc = None
+    if verify_crc and buf.is_cuda:
+        with span("crc32"):
+            crc = crc32_words(buf.view(torch.int32), n)
+    return buf[:end], crc
 
 
-def _download(words: torch.Tensor, n_bytes: int, crc_bytes: int):
-    """The int32 ``words`` copied, in one blocking copy, to the start of
+def _download(data: torch.Tensor, crc: torch.Tensor | None):
+    """The uint8 ``data`` copied, in one blocking copy, to the start of
     the calling thread's download buffer (page-locked for a CUDA tensor,
-    so the card writes it directly). Returns its first max(``words.nbytes``,
-    ``n_bytes``) bytes as a u8 view, room for the output's odd last byte
-    too, which may lie past the words; and, for a CUDA tensor and
-    ``crc_bytes`` > 0, the CRC32 of the words' first ``crc_bytes`` bytes,
-    taken on the card before the copy and brought down behind it in the
-    same buffer, as a one-element view there (else None). Both views stay
-    valid until the thread's next decode."""
-    n = words.numel()
-    end = max(4 * n, n_bytes)
-    if not (crc_bytes and words.is_cuda):
-        buf = _host_buffer("download", end, words.is_cuda)
-        copied(words, buf[: 4 * n].view(torch.int32).copy_(words.reshape(n)))
-        return buf.numpy(), None
-    with span("crc32"):
-        crc = crc32_words(words, crc_bytes)
-    at = -(-end // 4) * 4
+    so the card writes it directly), returned as a u8 view there; and the
+    card's ``crc`` (``_output``), brought down behind it in the same buffer
+    by the same copy's wait, as a one-element view there (else None). Both
+    views stay valid until the thread's next decode."""
+    n = data.numel()
+    if crc is None:
+        buf = _host_buffer("download", n, data.is_cuda)
+        copied(data, buf[:n].copy_(data))
+        return buf[:n].numpy(), None
+    at = -(-n // 4) * 4
     buf = _host_buffer("download", at + 4, True)
     slot = buf[at : at + 4].view(torch.int32)
     slot.copy_(crc, non_blocking=True)  # the blocking copy below waits for it
-    copied(words, buf[: 4 * n].view(torch.int32).copy_(words.reshape(n)))
-    return buf[:end].numpy(), slot
+    copied(data, buf[:n].copy_(data))
+    return buf[:n].numpy(), slot
+
+
+def _decompress_resident(h: ResidentContainer, verify_crc: bool) -> torch.Tensor:
+    """The original bytes of a held container as a new uint8 tensor on its
+    device: for v2, ``_decode_k1`` over the held rows; for the raw bytes, a
+    copy. On a CUDA device a verified call reads the 4 bytes of K11's
+    CRC32 (``wait``): the call's one blocking read, and nothing else
+    crosses between host and card. On the CPU zlib takes it. The tensor's
+    storage runs on past the original bytes, to whole words, and for v2
+    over the pad blocks' symbols. Counts the call's host time less its
+    wait as ``host_enqueue_ns``: the host's cost of issuing it."""
+    t0 = time.perf_counter_ns()
+    count("resident_calls", 1)
+    count("bytes_in", h.container_bytes)
+    n = h.original_size
+    if h.raw is not None:
+        with span("postpack"):
+            buf = torch.empty(-(-n // 4) * 4 or 4, dtype=torch.uint8, device=h.device)
+            buf[:n].copy_(h.raw)
+        crc = None
+        if verify_crc and buf.is_cuda:
+            with span("crc32"):
+                crc = crc32_words(buf.view(torch.int32), n)
+    else:
+        buf, crc = _decode_k1(h, h.streams, h.n_real, h.tables, verify_crc)
+    data, waited = buf[:n], 0
+    if verify_crc:
+        with span("crc32"):
+            if crc is not None:
+                slot = _host_buffer("crc", 4, True).view(torch.int32)
+                with span("wait"):
+                    w0 = time.perf_counter_ns()
+                    copied(crc, slot.copy_(crc))
+                    waited = time.perf_counter_ns() - w0
+                crc = int(slot[0]) & 0xFFFFFFFF
+                count("crc_device", 1)
+            else:
+                crc = zlib.crc32(data.numpy()) & 0xFFFFFFFF
+                count("crc_host", 1)
+        if crc != h.crc32:
+            raise ValueError("CRC mismatch: corrupt container or decode bug")
+    count("bytes_out", n)
+    count("host_enqueue_ns", time.perf_counter_ns() - t0 - waited)
+    return data
 
 
 def v2_device_inputs(c: ParsedContainer, device: torch.device):
@@ -592,14 +746,7 @@ def v2_device_inputs(c: ParsedContainer, device: torch.device):
     int32, n_real (ngroups,) int32, tables, block_symbols). The decode
     translates in K1 at every alphabet (``TRANSLATE_MAX_ALPHABET`` is
     the whole 16-bit alphabet), so it needs no K2 pass."""
-    cb = c.codebook
-    if cb.n_unique == 0:
-        raise ValueError("corrupt container: symbols but an empty codebook")
-    B = c.block_symbols
-    if B % 2:
-        raise ValueError("corrupt container: odd block_symbols")
-    with span("tables"):
-        tables = tables_from_codebook(cb, device)
+    tables = _v2_tables(c, device)
     with span("pad"):
         shape = (c.ngroups, c.row_words)
         pinned = torch.device(device).type == "cuda"
@@ -612,7 +759,18 @@ def v2_device_inputs(c: ParsedContainer, device: torch.device):
         streams = copied(host, host.to(device, copy=True))
         n_real = torch.from_numpy(c.n_real.astype(np.int32))
         n_real = copied(n_real, n_real.to(device))
-    return streams, n_real, tables, B
+    return streams, n_real, tables, c.block_symbols
+
+
+def _v2_tables(c: ParsedContainer, device: torch.device) -> Tables:
+    """The v2 decode's tables on ``device``, once the codebook and the
+    block size pass the checks every v2 decode makes."""
+    if c.codebook.n_unique == 0:
+        raise ValueError("corrupt container: symbols but an empty codebook")
+    if c.block_symbols % 2:
+        raise ValueError("corrupt container: odd block_symbols")
+    with span("tables"):
+        return tables_from_codebook(c.codebook, device)
 
 
 class _HostBuffers(threading.local):

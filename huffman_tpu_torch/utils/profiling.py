@@ -11,7 +11,8 @@ trace that silently went missing reads as a run without device work.
 ``htpu.<name>``, so the stages land in the same trace as the card's
 kernels and copies, on the same clock; otherwise it opens no range. Spans
 nest on a stack per thread; a span opened on an empty stack is a root
-(``compress``, ``decompress``). A root counts its ``calls``.
+(``compress``, ``decompress``, and ``load``, which holds a container on a
+device: ``block_format.ResidentContainer``). A root counts its ``calls``.
 ``count(name, n)`` adds to the open root's counter (nothing where no root
 is open), ``copied(src, dst)`` counts a copy between unpinned host memory
 and a CUDA device as ``h2d_pageable_bytes`` or ``d2h_pageable_bytes``, and

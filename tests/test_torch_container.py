@@ -284,9 +284,10 @@ ODD_TAILS = {  # (data, block_symbols, mode): where the odd last byte lands
 
 @pytest.mark.parametrize("name", sorted(ODD_TAILS))
 def test_odd_tail_in_one_copy_matches_symbols_to_bytes(name):
-    """An odd input's output, its last byte written into the download
-    buffer and the result copied out once, equals ``symbols_to_bytes`` of
-    its pairs and last byte, whatever the buffer held before."""
+    """An odd input's output, its last byte written into the decoded
+    output before the download and the result copied out of the download
+    buffer once, equals ``symbols_to_bytes`` of its pairs and last byte,
+    whatever the buffer held before."""
     from huffman_tpu_torch.container.reference_format import symbols_to_bytes
 
     make, B, mode = ODD_TAILS[name]

@@ -54,26 +54,30 @@ def test_plain_crc_of_no_bytes_and_of_zeros():
 
 
 def test_plain_crc_of_decoded_v2_words_leaves_the_pad_tail_out(monkeypatch):
-    """The words the v2 decode hands the download, in a CPU decompress: their
-    first 2 * n_pairs bytes, folded with the odd last byte, give the
-    header's CRC32; the pad blocks' symbols after them do not count."""
+    """The decoded output the v2 decode hands the download, in a CPU
+    decompress: its first original_size bytes, the odd last byte in place
+    after the pairs, give the header's CRC32; the pad blocks' symbols after
+    them do not count."""
     rng = np.random.default_rng(8)
     data = (rng.zipf(1.3, 9_000) % 700).astype("<u2").tobytes() + b"\x11"
     blob = huffman_tpu_torch.compress(data, "cpu", block_symbols=64)
     seen = []
     download = bf._download
 
-    def recording(words, n_bytes, crc_bytes):
-        seen.append((words.clone(), crc_bytes))
-        return download(words, n_bytes, crc_bytes)
+    def recording(out, crc):
+        seen.append((out.clone(), crc))
+        return download(out, crc)
 
     monkeypatch.setattr(bf, "_download", recording)
     assert huffman_tpu_torch.decompress(blob, "cpu") == data
-    (words, crc_bytes), = seen
-    n = 2 * (len(data) // 2)
-    assert crc_bytes == n and words.numel() * 4 > n  # pad symbols follow the pairs
-    crc = _crc(cuda_crc.crc32_words_plain(words, n))
-    assert zlib.crc32(data[-1:], crc) == bf.ParsedContainer(blob).crc32 == zlib.crc32(data)
+    (out, crc), = seen
+    n = len(data)
+    assert crc is None and out.numel() > n  # pad symbols follow the original bytes
+    words = torch.zeros(-(-out.numel() // 4) * 4, dtype=torch.uint8)
+    words[: out.numel()] = out
+    crc = _crc(cuda_crc.crc32_words_plain(words.view(torch.int32), n))
+    assert crc == bf.ParsedContainer(blob).crc32 == zlib.crc32(data)
+    assert _crc(cuda_crc.crc32_words_plain(words.view(torch.int32), n - 1)) == zlib.crc32(data[:-1])
 
 
 @pytest.mark.parametrize("seed", range(4))

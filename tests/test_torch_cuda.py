@@ -11,6 +11,7 @@ up for the port need not have, so run them with:
 """
 
 import types
+import warnings
 import zlib
 
 import numpy as np
@@ -742,7 +743,8 @@ def _crc_counts(fn) -> dict:
 def test_corrupt_payload_fails_crc_on_the_card(dev, monkeypatch):
     """A container with one flipped payload bit decodes on the card and
     fails the CRC32 check, taken on the card (``crc_device``; zlib in
-    ``block_format`` reads the odd last byte only), with the CPU's text."""
+    ``block_format`` reads nothing, the odd last byte included), with the
+    CPU's text."""
     from huffman_tpu_torch.corpus import silesia_like as port_silesia_like
 
     data = port_silesia_like(4 << 20, seed=9).tobytes() + b"\x03"
@@ -757,7 +759,7 @@ def test_corrupt_payload_fails_crc_on_the_card(dev, monkeypatch):
     with pytest.raises(ValueError, match="^CRC mismatch: corrupt container or decode bug$"):
         huffman_tpu_torch.decompress(bytes(blob), dev)
     assert kernels.launch_counts()["crc32_words"] == 1
-    assert lengths and max(lengths) <= 1
+    assert lengths == []
 
 
 CRC_LENGTHS = [2, 14, 16, 18, 510, 4098, cuda_crc.TILE_BYTES - 2, cuda_crc.TILE_BYTES,
@@ -803,9 +805,10 @@ def _decompress_capturing_crc(dev, blob, monkeypatch):
 @pytest.mark.parametrize("case", ["v2, 32 MiB", "v2, odd size", "v1, odd size"])
 def test_decompress_takes_the_crc_on_the_card(dev, case, monkeypatch):
     """A verified decompress on the card takes its CRC32 from K11 over the
-    decoded words' first 2 * n_pairs bytes (the pad blocks' symbols left
-    out), equal to the plain version and to zlib; the odd last byte folds
-    in on the host: the main path's 32 MiB, an odd size, and the v1 route."""
+    decoded output's first original_size bytes, the odd last byte put in
+    place on the card (the pad blocks' symbols left out), equal to the
+    plain version and to zlib; zlib on the host reads nothing: the main
+    path's 32 MiB, an odd size, and the v1 route."""
     from huffman_tpu_torch.corpus import silesia_like as port_silesia_like
 
     size, mode = {"v2, 32 MiB": (32 << 20, "interleaved"), "v2, odd size": ((3 << 20) + 777, "interleaved"),
@@ -815,12 +818,12 @@ def test_decompress_takes_the_crc_on_the_card(dev, case, monkeypatch):
     out, seen, counts, lengths = _decompress_capturing_crc(dev, blob, monkeypatch)
     assert out == data
     assert counts == {"crc_device": 1, "crc_host": 0}
-    assert lengths == ([1] if size & 1 else [])
+    assert lengths == []
     (words, n_bytes), = seen
-    assert n_bytes == 2 * (size // 2) <= 4 * words.numel()
+    assert n_bytes == size <= 4 * words.numel()
     got = cuda_crc.crc32_words(words, n_bytes)
     assert torch.equal(got, cuda_crc.crc32_words_plain(words, n_bytes))
-    assert int(got) & 0xFFFFFFFF == zlib.crc32(data[:n_bytes])
+    assert int(got) & 0xFFFFFFFF == zlib.crc32(data) == bf.ParsedContainer(blob).crc32
 
 
 def test_unverified_decompress_launches_no_crc(dev, monkeypatch):
@@ -836,6 +839,94 @@ def test_unverified_decompress_launches_no_crc(dev, monkeypatch):
     assert out == [data] and counts == {"crc_device": 0, "crc_host": 0} and lengths == []
     launched = kernels.launch_counts()
     assert launched["decode_groups"] == 1 and launched["crc32_words"] == 0
+
+
+def _root_delta(fn, root: str = "decompress") -> dict:
+    before = profiling.counters().get(root, {})
+    fn()
+    after = profiling.counters().get(root, {})
+    return {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+
+
+def test_resident_256mib_full_alphabet_on_the_card(dev):
+    """A 256 MiB container of 65,536 pairs, the benchmark's resident cell:
+    compressed on the card (the fused route at 256 groups), held on the
+    card, decoded by K1 with its 65,536-symbol table at 256 groups: equal
+    to the input and to ``decompress(bytes)``, and held at about its own
+    size."""
+    from codec_bench import gen
+
+    content = {"kind": "zipf_pairs", "n_unique": 65536, "zipf": 0.65, "base_seed": 11,
+               "shuffle_bytes": 1 << 20}
+    want = gen.make(content, 256 << 20, 2**31 + 5, 0, dev)
+    data = want.cpu().numpy().tobytes()
+    blob = huffman_tpu_torch.compress(data, dev)
+    h = huffman_tpu_torch.ResidentContainer(blob, dev)
+    assert h.raw is None and h.ngroups == 256 and h.tables.sym_order.numel() == 65536
+    assert len(blob) <= h.nbytes <= 1.01 * len(data)
+    got = []
+    counts = _root_delta(lambda: got.append(huffman_tpu_torch.decompress(h)))
+    out, = got
+    assert out.is_cuda and out.dtype == torch.uint8 and out.shape == (256 << 20,)
+    assert torch.equal(out, want)
+    assert counts["crc_device"] == 1 and counts["resident_calls"] == 1
+    del out, got
+    assert huffman_tpu_torch.decompress(blob, dev) == data
+
+
+def test_resident_call_launches_k1_and_k11_and_copies_no_data(dev):
+    """Each resident call launches K1 once and K11 once (its two
+    kernels), brings down the CRC's 4 bytes into pinned memory and
+    nothing else: no pageable byte either way, no host-to-card copy."""
+    from huffman_tpu_torch.corpus import silesia_like as port_silesia_like
+
+    data = port_silesia_like(4 << 20, seed=21).tobytes() + b"\x07"
+    h = huffman_tpu_torch.ResidentContainer(huffman_tpu_torch.compress(data, dev), dev)
+    kernels.reset_launch_counts()
+    outs = []
+    counts = _root_delta(lambda: outs.extend(huffman_tpu_torch.decompress(h) for _ in range(3)))
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert launched == {"decode_groups": 3, "crc32_words": 3}
+    assert counts["calls"] == counts["resident_calls"] == counts["crc_device"] == 3
+    assert counts["bytes_out"] == 3 * len(data) and counts["host_enqueue_ns"] > 0
+    assert "h2d_pageable_bytes" not in counts and "d2h_pageable_bytes" not in counts
+    assert all(o.cpu().numpy().tobytes() == data for o in outs)
+    for attempt in range(2):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            huffman_tpu_torch.decompress(h)
+            torch.cuda.synchronize()
+        device = {e.key: e.count for e in prof.key_averages() if str(e.device_type).endswith("CUDA")}
+        if device:
+            break
+        # A session that saw no device event at all, though K1 and K11 ran
+        # (the launch counts above), is the profiler's: CUPTI has missed a
+        # whole session late in a long run of these tests. Once more.
+        warnings.warn("the profiler recorded no device event; profiling the call again")
+    for kernel in ("decode_groups_kernel", "crc32_tiles_kernel", "crc32_combine_kernel"):
+        assert sum(n for k, n in device.items() if kernel in k) == 1, device
+    copies = {k: n for k, n in device.items() if "Memcpy" in k}
+    assert list(copies.values()) == [1] and "DtoH" in next(iter(copies)), device
+
+
+def test_resident_corrupt_payload_fails_crc_on_the_card(dev):
+    """A held container with one flipped payload bit fails the check K11
+    takes on the card, with the text of ``decompress(bytes)``."""
+    from huffman_tpu_torch.corpus import silesia_like as port_silesia_like
+
+    data = port_silesia_like(4 << 20, seed=9).tobytes() + b"\x03"
+    blob = bytearray(huffman_tpu_torch.compress(data, dev))
+    blob[len(blob) // 2] ^= 0x10  # a payload bit
+    h = huffman_tpu_torch.ResidentContainer(bytes(blob), dev)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="^CRC mismatch: corrupt container or decode bug$"):
+        huffman_tpu_torch.decompress(h)
+    assert kernels.launch_counts()["crc32_words"] == 1
+    with pytest.raises(ValueError, match="^CRC mismatch: corrupt container or decode bug$"):
+        huffman_tpu_torch.decompress(bytes(blob), dev)
+    out = huffman_tpu_torch.decompress(h, verify_crc=False)
+    assert out.is_cuda and out.numel() == len(data)
 
 
 def test_cli_on_the_card_equals_the_cpu(dev, tmp_path, monkeypatch, capsys):
